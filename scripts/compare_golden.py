@@ -11,7 +11,7 @@ scene, locates our frame inside each screenshot by gradient NCC, and reports
 offset + NCC + SSIM per stage. The imgui-overlaid lower third is excluded.
 
 Usage:
-  PYTHONPATH=/root/repo python scripts/compare_golden.py [--frames 32]
+  PYTHONPATH=. python scripts/compare_golden.py [--frames 32]
       [--size 800] [--out-dir golden_out] [--cpu]
 Writes golden_out/{stage}_ours.png, {stage}_pair.png, and report.json.
 """
@@ -19,13 +19,15 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
 import sys
 import time
 
 import numpy as np
 
-RESULTS = "/root/reference/result"
+# the reference checkout's result/ screenshots
+RESULTS = os.environ.get("TPURAY_REFERENCE_RESULTS", "reference/result")
 # screenshot -> (our debug view, accumulate frames needed)
 STAGES = {
     "1spp_input": "PATH_TRACING_1SPP",

@@ -1,14 +1,14 @@
 """Multi-PROCESS dryrun: N OS processes, loopback coordinator, CPU backend.
 
 Validates the jax.distributed entry path (tpuray.dist.multihost) that a real
-multi-host TPU deployment would use: every process initializes the
+multi-host deployment would use: every process initializes the
 distributed runtime, builds ONE global mesh over all processes' devices,
 and runs the mesh-parallel differentiable train step (rows sharded across
-processes, gradient psum riding what would be DCN) — asserting the loss is
+processes, gradient psum over what would be the network) — asserting the loss is
 finite and bit-identical on every process.
 
 Usage: python scripts/dryrun_multiprocess.py [n_processes]
-(The single-container analogue of `srun python train.py` on a pod slice.)
+(The single-container analogue of `srun python train.py` on a cluster.)
 """
 from __future__ import annotations
 

@@ -14,18 +14,20 @@ Writes assets/recovered_env.hdr (+ preview PNG). compare_golden.py
 --envmap assets/recovered_env.hdr then renders against a background with
 the real room's structure.
 
-PYTHONPATH=/root/repo python scripts/recover_envmap.py [--out assets]
+PYTHONPATH=. python scripts/recover_envmap.py [--out assets]
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
 import sys
 
 import numpy as np
 
-RESULTS = "/root/reference/result"
+# the reference checkout's result/ screenshots
+RESULTS = os.environ.get("TPURAY_REFERENCE_RESULTS", "reference/result")
 # cleanest backgrounds first; all five screenshots share one pose
 SHOTS = ["accumulate_output", "svgf_output", "modulate_color"]
 

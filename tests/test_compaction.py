@@ -45,8 +45,7 @@ def _run(scene, frac, size=48, depth=2):
     cam = OrbitCamera(width=size, height=size).snapshot()
     o, d, px, py = _rays(size, cam)
     return jax.jit(
-        lambda: trace_paths(scene, o, d, px, py, jnp.uint32(3), cfg,
-                            common_origin=True))()
+        lambda: trace_paths(scene, o, d, px, py, jnp.uint32(3), cfg))()
 
 
 def test_budget_rounding():
@@ -104,8 +103,7 @@ def test_coherent_sampling_survives_compaction(scene):
         cfg = RenderConfig(width=size, height=size, max_tracing_depth=depth,
                            compact_frac=frac, tile_coherent_sampling=coh)
         return jax.jit(
-            lambda: trace_paths(scene, o, d, px, py, jnp.uint32(3), cfg,
-                                common_origin=True))()
+            lambda: trace_paths(scene, o, d, px, py, jnp.uint32(3), cfg))()
 
     ref = run(0.0, True)
     com = run(0.5, True)

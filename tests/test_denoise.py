@@ -213,7 +213,7 @@ def test_fast_reproject_matches_exact_for_smooth_motion(rng):
 
 
 def test_tiled_reproject_matches_exact(rng):
-    """reproject_gather='tiled' (tile-windowed fetch, the TPU default) must
+    """reproject_gather='tiled' (tile-windowed fetch) must
     equal the exact gather path for smooth motion — including where the
     bilinear taps fail and the 3x3 rescue engages."""
     normal, z, fw_n, fw_z = flat_gbuffer(rng)

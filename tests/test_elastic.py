@@ -32,7 +32,7 @@ def setup():
 
 
 def test_fault_classification():
-    assert is_device_fault(RuntimeError("UNAVAILABLE: TPU worker process "
+    assert is_device_fault(RuntimeError("UNAVAILABLE: GPU worker process "
                                         "crashed or restarted"))
     assert is_device_fault(RuntimeError("INTERNAL: something"))
     assert not is_device_fault(ValueError("bad argument"))
@@ -50,7 +50,7 @@ def test_fault_classification_wrapped_runtime_errors():
         pass
 
     assert is_device_fault(
-        XlaRuntimeError("Execution failed: INTERNAL: device tunnel reset"))
+        XlaRuntimeError("Execution failed: INTERNAL: device connection reset"))
     assert is_device_fault(JaxRuntimeError("Internal: legacy lowercase form"))
     assert is_device_fault(XlaRuntimeError("rpc DEADLINE_EXCEEDED while "
                                            "waiting for transfer"))

@@ -38,9 +38,23 @@ def test_obj_native_matches_fallback(obj_file):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.fixture
+def big_obj_file(tmp_path):
+    """A model-sized OBJ (an icosphere: 3840 vertices, uv'd faces)."""
+    from tpuray.scene.procedural import icosphere
+    tris = icosphere(3).reshape(-1, 3)
+    lines = [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in tris]
+    lines += [f"vt {u:.4f} {v:.4f}" for u, v in (tris[:, :2] * 0.5 + 0.5)]
+    lines += [f"f {i}/{i} {i + 1}/{i + 1} {i + 2}/{i + 2}"
+              for i in range(1, len(tris) + 1, 3)]
+    p = tmp_path / "model.obj"
+    p.write_text("\n".join(lines) + "\n")
+    return str(p)
+
+
 @pytest.mark.skipif(not HAS_NATIVE, reason="native lib unavailable")
-def test_obj_native_matches_fallback_clock():
-    path = "/root/reference/models/clock.obj"
+def test_obj_native_matches_fallback_clock(big_obj_file):
+    path = big_obj_file
     n = native.parse_obj_native(path)
     f = fallback.parse_obj_py(path)
     assert n[0].shape[0] > 1000

@@ -2,7 +2,7 @@
 
 Runs scripts/dryrun_multiprocess.py (N=2 OS processes, loopback
 coordinator, CPU backend) as a subprocess — the same path a real multi-host
-TPU deployment takes through tpuray.dist.multihost (round-3 verdict asked
+deployment takes through tpuray.dist.multihost (round-3 verdict asked
 for this to be suite-guarded, not script-only). Marked slow: it spawns two
 fresh Python processes that each compile a small train step (~1-2 min).
 """

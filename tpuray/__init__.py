@@ -1,7 +1,7 @@
-"""tpuray — a TPU-native (JAX/XLA/Pallas) differentiable path tracer with SVGF denoising.
+"""tpuray — a differentiable path tracer with SVGF denoising, in JAX, for NVIDIA GPUs.
 
 A from-scratch re-design of the capabilities of blxl909/path-tracing-svgf
-(an OpenGL fragment-shader path tracer, see /root/reference) for TPU:
+(an OpenGL fragment-shader path tracer) as a JAX program:
 
 - stackless threaded-BVH ray traversal over flat SoA scene arrays
   (vs. the reference's per-fragment 256-entry stack, path_tracing.frag:372-424)

@@ -23,8 +23,8 @@ def gather2d(img: Array, yi: Array, xi: Array) -> Array:
 def shift2d(img: Array, dy: int, dx: int) -> Array:
     """Static-offset neighbor fetch with edge clamp (GL clamp-to-edge).
 
-    Implemented with static slices + edge broadcast (never an index-array
-    gather — those are slow on TPU even when the indices are affine)."""
+    Implemented with static slices + edge broadcast, never an index-array
+    gather, so XLA fuses it into the consumer."""
     if dy > 0:
         img = jnp.concatenate(
             [img[dy:], jnp.broadcast_to(img[-1:], (dy,) + img.shape[1:])], axis=0)

@@ -1,9 +1,8 @@
 """Packed previous-frame atlas for the temporal passes.
 
 Reprojection (denoise/reproject.py) reads illumination, variance, normal,
-depth, moments and history length at the *same* reprojected location; on TPU
-each separate fetch is a row-latency-bound gather, so all prev-frame buffers
-are packed into one (H, W, 12) atlas:
+depth, moments and history length at the *same* reprojected location, so
+all prev-frame buffers are packed into one (H, W, 12) atlas:
 
     [illum(3) | variance(1) | normal(3) | linear_z(1) | moments(2) | hist(1) | pad]
 

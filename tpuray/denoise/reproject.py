@@ -7,7 +7,7 @@ of illumination and luminance moments with history-length control.
 
 All previous-frame reads go through the packed history atlas
 (denoise/history_atlas.py): the 4 bilinear taps of every buffer are ONE
-TPU gather; the rescue is 9 atlas gathers (27+ narrow gathers before).
+gather; the rescue is 9 atlas gathers (27+ narrow gathers before).
 
 Default bilinear weights are the standard pixel-space fractional weights; the
 reference's sub-pixel-scaled weights (svgf_reproject.frag:84-91 computes the
@@ -48,22 +48,17 @@ def _tap_valid(yi, xi, h, w, z_cur, fw_z, n_cur, fw_n, tap, cfg):
 def _gather_mode(cfg: RenderConfig) -> str:
     """Resolve the moving-camera history-read strategy.
 
-    'tiled' (default on TPU): tile-windowed fetch (denoise/tile_gather.py),
-    ~90x faster than the gather path at 800x800 on v5e; exact bilinear taps,
-    conservatively-invalidated rescue taps at motion discontinuities.
-    'exact': the per-pixel gather path (CPU default; the oracle).
-    'fast': legacy shift-approximated everything (cfg.fast_reproject).
+    'exact': the per-pixel gather path (the oracle, and the faster read on
+    the H100 at 800x800, PERF.md); 'auto' resolves to it.
+    'tiled': tile-windowed fetch (denoise/tile_gather.py); exact bilinear
+    taps, conservatively-invalidated rescue taps at motion discontinuities.
+    The only read that supports row shards (row_window, dist/frame.py).
+    'fast': shift-approximated rescue taps (cfg.fast_reproject).
     """
     if cfg.fast_reproject:
         return "fast"
     mode = cfg.reproject_gather
-    if mode == "auto":
-        try:
-            on_cpu = jax.default_backend() == "cpu"
-        except RuntimeError:
-            on_cpu = True
-        mode = "exact" if on_cpu else "tiled"
-    return mode
+    return "exact" if mode == "auto" else mode
 
 
 def reproject(color: Array, emission: Array, albedo: Array,
@@ -153,11 +148,11 @@ def reproject(color: Array, emission: Array, albedo: Array,
     r_illum = jnp.zeros((h, w, 4), jnp.float32)
     r_mom = jnp.zeros((h, w, 2), jnp.float32)
     if cfg.fast_reproject:
-        # TPU fast path: tap (y0+dy, x0+dx) at pixel p equals the base tap
+        # shift path: tap (y0+dy, x0+dx) at pixel p equals the base tap
         # at pixel p+(dy,dx) wherever the motion field is locally smooth
         # (y0(p+e) == y0(p)+e), so the 9 rescue taps become static shifts of
         # the ONE quad gather already issued — saving 4 more full-frame
-        # gathers (~40 ms each on TPU). Differs from the exact rescue only
+        # gathers. Differs from the exact rescue only
         # across motion discontinuities, where reprojection is about to be
         # rejected anyway.
         from tpuray.denoise.common import shift2d
@@ -231,8 +226,7 @@ def _finish(color, illum, prev_i, prev_mo, bilinear_ok, rescue_ok, taps,
 
     # history length fetched at the reprojected position (frag:143-147).
     # round(fy/fx) is always one of the 4 bilinear corners already gathered,
-    # so select from the quad instead of issuing another full-frame gather
-    # (each costs ~40 ms on TPU).
+    # so select from the quad instead of issuing another full-frame gather.
     # (clamped-index compare so screen borders match the clamped fetch)
     near_x = jnp.clip(jnp.round(fx).astype(jnp.int32), 0, w - 1) \
         > jnp.clip(x0i, 0, w - 1)
@@ -278,7 +272,7 @@ def _reproject_tiled(color, emission, albedo, motion, normal, linear_z,
     integer motion varies by <= span inside a tile (everywhere, for camera
     motion); 3x3 rescue taps are additionally invalidated across >= 1px/px
     motion-field discontinuities, where reprojection is about to fail its
-    depth/normal tests anyway. ~90x faster on v5e at 800x800.
+    depth/normal tests anyway. Supports row shards (row_window).
     """
     from tpuray.denoise.history_atlas import split
     from tpuray.denoise.tile_gather import tiled_taps
@@ -379,9 +373,8 @@ def _reproject_static(color, emission, albedo, normal, linear_z,
                       row_window: tuple | None = None) -> ReprojectOutput:
     """Static-camera specialization: motion == 0, so every history read is
     the same pixel (bilinear collapses to the base tap) and the 3x3 rescue
-    uses static shifts — the whole pass is gather-free, which matters on TPU
-    where a single full-frame gather costs ~40 ms. Semantically identical to
-    the general path with motion = 0."""
+    uses static shifts — the whole pass is gather-free. Semantically
+    identical to the general path with motion = 0."""
     from tpuray.denoise.common import inside_mask, shift2d
 
     h, w = color.shape[:2]

@@ -76,8 +76,8 @@ def clip_aabb(cur_ycc_3x3_mu, cur_ycc_3x3_sigma, prev_ycc, gamma=1.0):
 def _history_fetch_tiled(prev_color: Array, vel: Array,
                          row_window: tuple | None = None) -> Array:
     """Bilinear history fetch via the tile-windowed path
-    (denoise/tile_gather.py) instead of a full-frame gather (~8 ms/Mpx on
-    v5e). Unresolved taps (motion discontinuities, image edges) drop out of
+    (denoise/tile_gather.py) instead of a full-frame gather, as row shards
+    need (dist/frame.py). Unresolved taps (motion discontinuities, image edges) drop out of
     the bilinear sum with weight renormalization; if all four fail the
     history is rejected (zero weight -> falls back to the current color via
     the caller's variance clip + blend)."""
@@ -126,7 +126,7 @@ def taa(cur_color: Array, prev_color: Array, velocity: Array,
     else:
         vel = closest_velocity(velocity, linear_z)
         # history fetch at uv - velocity (bilinear, taa.frag:137-139); the
-        # 2x2 neighborhood is quad-packed so the fetch is one gather on TPU
+        # 2x2 neighborhood is quad-packed so the fetch is one gather
         from tpuray.integrator.gather_tables import bilinear_fetch_packed, quad_pack_image
         yy, xx = jnp.meshgrid(jnp.arange(h), jnp.arange(w), indexing="ij")
         u = jnp.clip((xx + 0.5) / w - vel[..., 0], 0.0, 1.0)

@@ -1,13 +1,13 @@
 """Tile-windowed history fetch: gather-free temporal reprojection reads.
 
-TPU per-pixel gathers are row-latency bound: one full-frame fetch of the
-quad-packed history atlas costs ~43 ms at 800x800 on v5e (scripts/
-exp_tilegather.py), and SVGF reprojection needs five -> ~185 ms/frame. This
-module replaces them with a decomposition that runs in ~2 ms:
+Reads the history at motion-shifted positions without per-pixel gathers,
+from a window per tile. It is the history read of the row-sharded frame
+(dist/frame.py): a shard holds only its rows plus a halo, and the windows
+bound every read to them. On one device the per-pixel gather path
+('exact') is the default.
 
-  1. split the image into (ty, tx) tiles; for each tile, DMA one history
-     *window* with `vmap(lax.dynamic_slice)` — a coarse, contiguous fetch
-     the TPU is good at;
+  1. split the image into (ty, tx) tiles; for each tile, fetch one history
+     *window* with `vmap(lax.dynamic_slice)` — a coarse, contiguous fetch;
   2. inside each window, reconstruct the per-pixel base texel with a short
      chain of static-slice + select ops keyed on the *diagonal residual*
      r = (tap_row - pixel_row): for locally smooth motion r is nearly
@@ -23,8 +23,7 @@ module replaces them with a decomposition that runs in ~2 ms:
      exactly the algorithm's existing response to invalid history.
 
 (A variant that quad-packs the window channels makes the bilinear taps
-exact at the contours too, but 4x the select traffic costs more than the
-0.5% tap loss is worth: 26 ms vs ~8 ms per moving reprojection at 1080^2.)
+exact at the contours too, at 4x the select traffic.)
 
 Exactness contract: for every offset e=(dy,dx), wherever `resolved[e]` is
 True the returned tap equals atlas[clip(y0)+dy, clip(x0)+dx] with those

@@ -5,8 +5,8 @@ tracing. This module runs the ENTIRE frame — trace, G-buffer, temporal
 reprojection, spatial variance, a-trous chain, modulate, TAA, history save —
 with image rows sharded across the mesh and the scene replicated. The
 denoise stages are stencils, so each stage exchanges exactly the halo rows
-it needs with its mesh neighbors via `lax.ppermute` (ICI traffic: a few
-hundred KB per frame), then computes on the halo-extended shard with
+it needs with its mesh neighbors via `lax.ppermute` (NCCL over NVLink: a
+few hundred KB per frame), then computes on the halo-extended shard with
 global-coordinate boundary masks (`row_window` support in denoise/*) so the
 result is exactly the single-device frame.
 
@@ -121,14 +121,15 @@ def render_frame_sharded(scene: Scene, camera: Camera, state: FrameState,
         ys = -(2.0 * (yy.reshape(n).astype(jnp.float32) + 0.5) / height
                - 1.0) * tan_half_fov
         d_cam = jnp.stack([xs, ys, -jnp.ones_like(xs)], axis=-1)
-        d = d_cam @ cam_to_world.T
+        d = jnp.einsum("ij,nj->ni", cam_to_world, d_cam,
+                       precision=jax.lax.Precision.HIGHEST)
         d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
         orig = jnp.broadcast_to(eye, (n, 3))
         px = xx.reshape(n)
         py = (height - 1 - yy).reshape(n)
 
         pt = trace_paths(scene, orig, d, px, py, frame.astype(jnp.uint32),
-                         cfg, common_origin=True)
+                         cfg)
         color = pt.color.reshape(rows, width, 3)
         emission = pt.emission.reshape(rows, width, 3)
         albedo = pt.albedo.reshape(rows, width, 3)

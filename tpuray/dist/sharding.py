@@ -1,11 +1,11 @@
 """Ray-tile data parallelism over a jax.sharding.Mesh.
 
 The reference is single-GPU OpenGL with no distribution layer (SURVEY.md
-§2.5); the TPU-native scaling axis is the image. The image is sharded by
+§2.5); the scaling axis here is the image. The image is sharded by
 rows across the 'tiles' mesh axis with the scene replicated — collectives
-ride ICI; the only cross-device traffic is the implicit all-gather when the
-caller assembles the full frame, and psum of parameter gradients in training
-(tpuray.train.optimize).
+go over NCCL on NVLink; the only cross-device traffic is the implicit
+all-gather when the caller assembles the full frame, and psum of parameter
+gradients in training (tpuray.train.optimize).
 
 Every per-ray computation keys its RNG off *global* pixel coordinates, so a
 sharded render is bit-identical to the single-device one.
@@ -74,7 +74,7 @@ def render_tiled(scene: Scene, camera: Camera, cfg: RenderConfig,
             d = dirs_t.reshape(n, 3)
             o = jnp.broadcast_to(eye, (n, 3))
             pt = trace_paths(scene, o, d, px_t.reshape(n), py_t.reshape(n),
-                             frame, cfg, common_origin=True)
+                             frame, cfg)
             return (pt.color.reshape(rows, width, 3),
                     pt.emission.reshape(rows, width, 3),
                     pt.albedo.reshape(rows, width, 3))

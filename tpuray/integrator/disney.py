@@ -355,10 +355,17 @@ def _reflect(v: Array, h: Array) -> Array:
     return v - 2.0 * jnp.sum(v * h, axis=-1, keepdims=True) * h
 
 
+def _sqrt0(x: Array) -> Array:
+    """sqrt of a clamped-nonnegative value with a zero (not 0 * inf = NaN)
+    gradient where the value is 0."""
+    pos = x > 0.0
+    return jnp.where(pos, jnp.sqrt(jnp.where(pos, x, 1.0)), 0.0)
+
+
 def sample_gtr2(xi1: Array, xi2: Array, v: Array, n: Array, alpha: Array) -> Array:
     phi = 2.0 * PI * xi1
-    ct = jnp.sqrt(jnp.clip((1.0 - xi2) / (1.0 + (alpha * alpha - 1.0) * xi2), 0.0, 1.0))
-    st = jnp.sqrt(jnp.maximum(0.0, 1.0 - ct * ct))
+    ct = _sqrt0(jnp.clip((1.0 - xi2) / (1.0 + (alpha * alpha - 1.0) * xi2), 0.0, 1.0))
+    st = _sqrt0(jnp.maximum(0.0, 1.0 - ct * ct))
     h = to_normal_hemisphere(
         jnp.stack([st * jnp.cos(phi), st * jnp.sin(phi), ct], axis=-1), n)
     return _reflect(-v, h)
@@ -383,8 +390,8 @@ def sample_gtr2_aniso(xi1: Array, xi2: Array, v: Array, n: Array,
 def sample_gtr1(xi1: Array, xi2: Array, v: Array, n: Array, alpha: Array) -> Array:
     phi = 2.0 * PI * xi1
     a2 = alpha * alpha
-    ct = jnp.sqrt(jnp.clip((1.0 - jnp.power(a2, 1.0 - xi2)) / jnp.maximum(1.0 - a2, 1e-8), 0.0, 1.0))
-    st = jnp.sqrt(jnp.maximum(0.0, 1.0 - ct * ct))
+    ct = _sqrt0(jnp.clip((1.0 - jnp.power(a2, 1.0 - xi2)) / jnp.maximum(1.0 - a2, 1e-8), 0.0, 1.0))
+    st = _sqrt0(jnp.maximum(0.0, 1.0 - ct * ct))
     h = to_normal_hemisphere(
         jnp.stack([st * jnp.cos(phi), st * jnp.sin(phi), ct], axis=-1), n)
     return _reflect(-v, h)
@@ -421,8 +428,8 @@ class ViewPre(NamedTuple):
     """L-independent precompute shared by every BSDF evaluation at one
     shading point (the integrator evaluates f_r for 3 directions per
     bounce: envmap NEE, point NEE, sampled bounce — path_tracing.frag:948-968
-    re-derives all of this per call; sharing it is free on TPU because the
-    whole frame is one fused XLA graph, we just keep the graph smaller)."""
+    re-derives all of this per call; the whole frame is one fused XLA
+    graph, so sharing it only keeps the graph smaller)."""
 
     ndotv: Array
     fv: Array            # schlick_fresnel(ndotv)

@@ -1,8 +1,7 @@
 """Latency-amortized gather tables.
 
-XLA gathers on TPU are row-latency bound (~15ns/row regardless of width up
-to ~128B), so N separate narrow gathers cost N times one wide gather. These
-helpers pack the per-triangle attribute SoA and the envmap into wide rows so
+N separate narrow gathers read the same rows N times where one wide gather
+reads them once. These helpers pack the per-triangle attribute SoA and the envmap into wide rows so
 each shading-time lookup is a single gather:
 
 - triangle attributes -> (T, 32) f32 rows
@@ -122,10 +121,8 @@ _SMALL_TABLE_ROWS = 64
 def fetch_small_table(table: Array, idx: Array) -> Array:
     """Row fetch from a small (T<=64, W) table as an unrolled select-chain.
 
-    XLA's gather on TPU costs ~30ns/row *per index* regardless of table
-    size (even a 16-row table costs ~20 ms at 640k indices — measured in
-    scripts/bench_gather.py); T broadcast-selects cost <1 ms. Used for the
-    material and light tables."""
+    T broadcast-selects fuse into the consumer with no gather at all. Used
+    for the material and light tables."""
     t = int(table.shape[0])
     out = jnp.broadcast_to(table[0], idx.shape + (table.shape[1],))
     for r in range(1, t):
@@ -158,9 +155,8 @@ def pack_texture_stack(tex: Array) -> Array:
     """(O, 4, H, W, 3) layers -> (O, H, W, 20) bf16 quad-packed combined map
     [albedo.rgb, metallic.r, roughness.r] (one gather resolves all three).
 
-    Stored as bf16 scaled by 255: TPU gathers run ~3x faster on 16-bit rows
-    (measured: 2.8 vs 8.4 ms / 640k rows on v5e, any width), and 8-bit
-    texel values are integers 0..255 — exact in bf16 — so for byte-sourced
+    Stored as bf16 scaled by 255: 16-bit rows halve the bytes a gather
+    moves, and 8-bit texel values are integers 0..255 — exact in bf16 — so for byte-sourced
     textures (the reference's BMPs) the fetch is bit-identical to f32.
 
     PRECONDITION: exactness holds only for byte-sourced inputs (values on

@@ -54,7 +54,8 @@ def quad_ddy(img: Array) -> Array:
 def _project_uv(view_proj: Array, p: Array) -> tuple[Array, Array]:
     """world point -> (uv in [0,1]^2, clip w)."""
     ph = jnp.concatenate([p, jnp.ones_like(p[..., :1])], axis=-1)
-    clip = jnp.einsum("ij,...j->...i", view_proj, ph)
+    clip = jnp.einsum("ij,...j->...i", view_proj, ph,
+                      precision=jax.lax.Precision.HIGHEST)
     w = clip[..., 3]
     ndc = clip[..., :2] / jnp.where(jnp.abs(w) < 1e-12, 1e-12, w)[..., None]
     return ndc * 0.5 + 0.5, w

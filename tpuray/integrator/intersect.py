@@ -1,6 +1,6 @@
 """Ray intersection: triangle test, AABB slab test, stackless BVH traversal.
 
-TPU-first re-design of the reference's traversal (path_tracing.frag:215-424).
+Re-design of the reference's traversal (path_tracing.frag:215-424).
 The reference runs a per-fragment DFS with a 256-entry stack and near-child
 ordering; a per-ray stack is hostile to a lock-step SIMD wavefront, so we use
 the threaded DFS layout (BVHSoA.skip) and a *single-pointer* traversal:
@@ -105,9 +105,10 @@ def triangle_constants(tri: TriangleSoA):
 def ray_triangle_pre(ox, oy, oz, dx, dy, dz,
                      nx, ny, nz, np0, t1x, t1y, t1z, t1w,
                      t2x, t2y, t2z, t2w) -> tuple[Array, Array]:
-    """Scalarized precomputed triangle test. Op order here is mirrored
-    bit-for-bit by the Pallas packet kernel (kernels/trace_pallas.py) so the
-    oracle and the kernel agree exactly. Returns (hit, t)."""
+    """Scalarized precomputed triangle test. Op order here is mirrored by
+    the GPU traversal kernel (kernels/trace_triton.py) so the oracle and the
+    kernel agree up to FMA contraction and division rounding.
+    Returns (hit, t)."""
     ndotd = nx * dx + ny * dy + nz * dz
     ndoto = nx * ox + ny * oy + nz * oz
     invalid = jnp.abs(ndotd) < PARALLEL_EPS
@@ -147,7 +148,7 @@ def trace(bvh: BVHSoA, tri: TriangleSoA, orig: Array, d: Array,
     n_nodes = bvh.count
     n = orig.shape[0]
     t_max = jnp.broadcast_to(jnp.asarray(t_max, jnp.float32), (n,))
-    # dead-lane convention shared with the Pallas kernel: t_max <= 0 means
+    # dead-lane convention shared with the GPU kernel: t_max <= 0 means
     # "masked off" — snap to -INF so an inside-the-box origin (negative
     # slab t0) cannot sneak past the `t0 < limit` test
     t_max = jnp.where(t_max <= 0.0, -INF, t_max)

@@ -30,8 +30,7 @@ def mis_mix_weight(a: Array, b: Array) -> Array:
 
 
 def trace_paths_mis(scene: Scene, orig: Array, d: Array, px: Array, py: Array,
-                    frame, cfg: RenderConfig,
-                    common_origin: bool = False) -> "pt.PTOutput":
+                    frame, cfg: RenderConfig) -> "pt.PTOutput":
     n = orig.shape[0]
     pk = pt.pack_scene_tables(scene)
     aniso = pt.resolve_aniso(scene, cfg)
@@ -40,7 +39,7 @@ def trace_paths_mis(scene: Scene, orig: Array, d: Array, px: Array, py: Array,
     _, seed = rng.rand(seed)
     _, seed = rng.rand(seed)
 
-    from tpuray.kernels.trace_pallas import PACKET as _BLOCK
+    _BLOCK = 1024  # rays of one 32x32 screen tile (render/tiling.py)
     coherent = cfg.tile_coherent_sampling and n % _BLOCK == 0
     if coherent:
         n_tiles = n // _BLOCK
@@ -72,8 +71,7 @@ def trace_paths_mis(scene: Scene, orig: Array, d: Array, px: Array, py: Array,
         # dead-lane masking: terminated paths get t_max = 0 so all-dead
         # packets skip the BVH walk entirely (see path_tracer.trace_paths)
         b_tmax = pt.INF if bounce == 0 else jnp.where(alive, pt.INF, 0.0)
-        t, idx = pt.trace(scene.bvh, scene.triangles, orig, d, t_max=b_tmax,
-                          common_origin=common_origin and bounce == 0)
+        t, idx = pt.trace(scene.bvh, scene.triangles, orig, d, t_max=b_tmax)
         hit = pt.resolve_hit(scene, orig, d, t, idx, cfg, pk)
 
         if bounce == 0:

@@ -1,6 +1,6 @@
 """Asset-root resolution.
 
-TPU-native equivalent of the reference's FileSystem helper
+Equivalent of the reference's FileSystem helper
 (lib/filesystem.h:8-49), which resolves asset paths against a
 CMake-configured root or the LOGL_ROOT_PATH env var. Here:
 
@@ -13,7 +13,7 @@ checks, in order:
      analogue);
   3. roots registered programmatically via add_root() (highest priority
      last);
-  4. built-in fallback roots (the vendored reference checkout, if present).
+  4. the checkout's assets/ directory.
 
 Raises FileNotFoundError listing every root tried, instead of the
 reference's hard exit(-1) (obj_loader.h:17).
@@ -25,12 +25,8 @@ from pathlib import Path
 
 _ENV_VAR = "TPURAY_ASSET_ROOT"
 
-# lowest-priority fallbacks: the read-only reference checkout ships the only
-# .obj models in this container
-_DEFAULT_ROOTS = [
-    "/root/reference",
-    "/root/reference/models",
-]
+# lowest-priority fallback: the assets shipped with the checkout
+_DEFAULT_ROOTS = [str(Path(__file__).resolve().parents[2] / "assets")]
 
 _extra_roots: list[str] = []
 

@@ -22,13 +22,18 @@ _lib_failed = False
 
 
 def _build_so() -> bool:
+    """Compile into a private file, then rename it into place, so processes
+    that build at once never load a half-written library."""
+    tmp = _SO_PATH.with_name(f"{_SO_PATH.name}.{os.getpid()}.tmp")
     try:
         subprocess.run(
-            ["make", "-s", "libtpuray_native.so"],
+            ["make", "-s", f"OUT={tmp.name}"],
             cwd=_NATIVE_DIR, check=True, capture_output=True, timeout=120,
         )
-        return _SO_PATH.exists()
-    except Exception:
+        os.replace(tmp, _SO_PATH)
+        return True
+    except (OSError, subprocess.SubprocessError):
+        tmp.unlink(missing_ok=True)
         return False
 
 

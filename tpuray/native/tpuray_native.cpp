@@ -1,7 +1,7 @@
 // tpuray native host library: scene ingestion + acceleration-structure build.
 //
-// TPU-native equivalents of the reference's C++ host components
-// (/root/reference: Utils/obj_loader.h, Utils/BVH.h, Utils/hdr_compute.h,
+// Equivalents of the reference's C++ host components
+// (Utils/obj_loader.h, Utils/BVH.h, Utils/hdr_compute.h,
 // lib/hdrloader.cpp, lib/stb_image.h usage) re-designed for flat SoA output
 // consumed by JAX. Exposed as a plain C ABI for ctypes binding — no pybind11.
 //

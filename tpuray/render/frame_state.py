@@ -11,12 +11,13 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from tpuray.scene.types import pytree_dataclass
 
 Array = jax.Array
 
 
-@struct.dataclass
+@pytree_dataclass
 class FrameState:
     # last SVGF illumination history: the a-trous feedback tap
     # (output of iteration cfg.history_atrous_tap, main.cpp:521-525)

@@ -1,4 +1,4 @@
-"""Counter-free GPU-style RNG, re-implemented in uint32 jnp for TPU.
+"""Counter-free GPU-style RNG, re-implemented in uint32 jnp.
 
 Semantics match the reference sampler suite (path_tracing.frag:433-515):
  - per-pixel Wang-hash stream seeded by (pixel coords, frame counter)
@@ -6,9 +6,8 @@ Semantics match the reference sampler suite (path_tracing.frag:433-515):
    shared by all pixels of a frame (it depends only on frame+bounce)
  - Cranley-Patterson rotation decorrelating the Sobol point per pixel.
 
-All hashing is done with explicit uint32 arrays; TPUs have no native uint32
-scalar unit, but XLA lowers these bit ops onto the VPU fine. The stream is
-functional: each draw returns (value, next_state).
+All hashing is done with explicit uint32 arrays, which XLA lowers to plain
+integer ops. The stream is functional: each draw returns (value, next_state).
 """
 from __future__ import annotations
 

@@ -22,6 +22,14 @@ from tpuray.scene.types import (
     BVHSoA, EnvMap, MaterialTable, PointLights, Scene, TextureStack, TriangleSoA,
 )
 
+# the reference's four point lights (main.cpp:157-160): (position, radiance)
+REFERENCE_LIGHTS = (
+    ((0.5, 0.5, 0.5), (10.0, 10.0, 10.0)),
+    ((-0.5, 0.75, 0.5), (8.0, 4.0, 4.0)),
+    ((-0.5, 0.75, 0.75), (0.0, 3.0, 4.0)),
+    ((0.75, 0.75, 0.75), (12.0, 3.0, 4.0)),
+)
+
 _MATERIAL_DEFAULTS = dict(
     emissive=(0.0, 0.0, 0.0), base_color=(1.0, 1.0, 1.0), subsurface=0.0,
     metallic=0.0, specular=0.5, specular_tint=0.0, roughness=0.5,
@@ -120,7 +128,6 @@ def build_scene(
     texture_res: int = 256,
     reference_quirks: bool = False,
     with_textures: bool = False,
-    max_chunk_tris: int = 2048,
 ) -> Scene:
     all_p, all_n, all_uv, all_mat, all_obj = [], [], [], [], []
     materials = []
@@ -154,32 +161,8 @@ def build_scene(
     mat_id = np.concatenate(all_mat)
     obj_id = np.concatenate(all_obj)
 
-    from tpuray.kernels.trace_pallas import scene_fits_smem
-    # build the single tree first and gate on REAL node counts: a
-    # conservative 2*T node estimate needlessly chunked the flagship scene
-    # (actual nodes ~T/3), and a forest handed to the single-tree packer
-    # scrambles traversal past the first chunk boundary
     bvh = build_bvh(pos, leaf_size)
-    if scene_fits_smem(len(bvh["skip"]), len(pos)):
-        perm = bvh["perm"]
-        chunk_kw = {}
-    else:
-        # beyond the single-tree kernel's SMEM budget: build a uniform
-        # chunked forest so traversal stays on the packet kernel
-        # (kernels/trace_chunked.py) instead of the slow XLA wavefront
-        from tpuray.scene.partition import (
-            apply_perm_padded, build_forest_bvh_uniform)
-        bvh = build_forest_bvh_uniform(pos, leaf_size, max_chunk_tris)
-        assert bvh["chunk_nodes"] % 128 == 0
-        perm = bvh["perm"]
-        chunk_kw = dict(chunk_nodes=int(bvh["chunk_nodes"]),
-                        chunk_tris=int(bvh["chunk_tris"]))
-        pos = apply_perm_padded(pos, perm)
-        nrm = apply_perm_padded(nrm, perm)
-        uv = apply_perm_padded(uv, perm)
-        mat_id = apply_perm_padded(mat_id, perm)
-        obj_id = apply_perm_padded(obj_id, perm)
-        perm = np.arange(len(pos))  # attributes already permuted/padded
+    perm = bvh["perm"]
     tri = TriangleSoA(
         p0=jnp.asarray(pos[perm, 0]), p1=jnp.asarray(pos[perm, 1]), p2=jnp.asarray(pos[perm, 2]),
         n0=jnp.asarray(nrm[perm, 0]), n1=jnp.asarray(nrm[perm, 1]), n2=jnp.asarray(nrm[perm, 2]),
@@ -189,7 +172,7 @@ def build_scene(
     bvh_soa = BVHSoA(
         aabb_min=jnp.asarray(bvh["aabb_min"]), aabb_max=jnp.asarray(bvh["aabb_max"]),
         first_tri=jnp.asarray(bvh["first_tri"]), tri_count=jnp.asarray(bvh["tri_count"]),
-        skip=jnp.asarray(bvh["skip"]), **chunk_kw,
+        skip=jnp.asarray(bvh["skip"]),
     )
 
     if point_lights:
@@ -248,11 +231,5 @@ def reference_default_scene(reference_obj_dir: str | None = None,
                       roughness=-1.0, specular=0.0, clearcoat=0.0,
                       clearcoat_gloss=0.0),
     )
-    lights = [
-        ((0.5, 0.5, 0.5), (10.0, 10.0, 10.0)),
-        ((-0.5, 0.75, 0.5), (8.0, 4.0, 4.0)),
-        ((-0.5, 0.75, 0.75), (0.0, 3.0, 4.0)),
-        ((0.75, 0.75, 0.75), (12.0, 3.0, 4.0)),
-    ]
     kw.setdefault("with_textures", True)
-    return build_scene([clock], point_lights=lights, **kw)
+    return build_scene([clock], point_lights=REFERENCE_LIGHTS, **kw)

@@ -10,7 +10,6 @@ import dataclasses
 import math
 
 import numpy as np
-import jax.numpy as jnp
 
 from tpuray.scene.types import Camera
 
@@ -75,11 +74,13 @@ class OrbitCamera:
         view = self.view_matrix()
         proj = self.proj_matrix()
         cam_to_world = np.linalg.inv(view)[:3, :3]
+        # host arrays: the frame's jit call moves them to the device, and
+        # the Renderer compares views without reading device memory
         return Camera(
-            eye=jnp.asarray(self.eye, jnp.float32),
-            cam_to_world=jnp.asarray(cam_to_world, jnp.float32),
-            view_proj=jnp.asarray(proj @ view, jnp.float32),
-            tan_half_fov=jnp.float32(math.tan(math.radians(self.fov_y_deg) / 2.0)),
+            eye=np.asarray(self.eye, np.float32),
+            cam_to_world=np.asarray(cam_to_world, np.float32),
+            view_proj=np.asarray(proj @ view, np.float32),
+            tan_half_fov=np.float32(math.tan(math.radians(self.fov_y_deg) / 2.0)),
         )
 
     # --- interaction (mirrors main.cpp:614-655 mouse/scroll semantics) ---

@@ -1,7 +1,7 @@
 """Render configuration.
 
 Parameter names and defaults mirror the reference GUI config
-(/root/reference/Utils/gui_config.h:21-34) so a reference user can map their
+(reference Utils/gui_config.h:21-34) so a reference user can map their
 slider settings 1:1. Static fields (depth, iterations, resolution) are Python
 ints — they shape the compiled program; float thresholds are runtime values.
 """
@@ -69,52 +69,34 @@ class RenderConfig:
     enable_svgf: bool = True
     enable_taa: bool = True
 
-    # use the fused Pallas a-trous stencil kernel when running on TPU
-    # (tpuray/kernels/atrous_pallas.py); the jnp path is the CPU/oracle
-    # implementation. Ignored off-TPU.
-    pallas_denoise: bool = True
-
     # moving-camera history-read strategy (denoise/reproject.py):
-    #  "auto"  -> "tiled" on TPU, "exact" on CPU
-    #  "tiled" -> tile-windowed fetch (denoise/tile_gather.py): ~90x faster
-    #             than the gather path on v5e; bilinear taps exact wherever
-    #             the integer motion varies <= span per tile (always, for
-    #             camera motion), rescue taps conservatively invalidated
-    #             across motion discontinuities
+    #  "auto"  -> "exact" (denoise/reproject._gather_mode)
+    #  "tiled" -> tile-windowed fetch (denoise/tile_gather.py): bilinear taps
+    #             exact wherever the integer motion varies <= span per tile
+    #             (always, for camera motion), rescue taps conservatively
+    #             invalidated across motion discontinuities
     #  "exact" -> per-pixel gathers, reference tap-exact semantics (oracle)
     reproject_gather: str = "auto"
 
-    # legacy TPU throughput mode (pre-"tiled"): derive the 3x3 rescue taps
-    # from static shifts of the one bilinear quad gather. Superseded by
-    # reproject_gather="tiled", kept for comparison; forces mode "fast".
+    # shift-approximated rescue taps: derive the 3x3 rescue taps from static
+    # shifts of the one bilinear quad gather; forces mode "fast".
     fast_reproject: bool = False
 
-    # TPU throughput mode: draw the secondary-ray randoms (envmap sample,
-    # light pick, BSDF-lobe/CPR rotation) once per 32x32 SCREEN tile instead
-    # of per pixel, keyed on (tile_x, tile_y, frame) so it composes with
-    # bounce-boundary compaction and image sharding. Keeps each packet's
-    # shadow/bounce rays direction-coherent, which is what the packet
-    # traversal kernel needs; per-pixel noise becomes per-tile noise (still
-    # unbiased per pixel, refreshed per frame by the Sobol sequence).
-    # Off = reference per-pixel semantics.
+    # draw the secondary-ray randoms (envmap sample, light pick,
+    # BSDF-lobe/CPR rotation) once per 32x32 SCREEN tile instead of per
+    # pixel, keyed on (tile_x, tile_y, frame) so it composes with
+    # bounce-boundary compaction and image sharding. Keeps neighbouring
+    # shadow/bounce rays direction-coherent; per-pixel noise becomes
+    # per-tile noise (still unbiased per pixel, refreshed per frame by the
+    # Sobol sequence). Off = reference per-pixel semantics.
     tile_coherent_sampling: bool = False
-
-    # Fused per-bounce secondary traversal (kernels/trace_pallas.trace_multi,
-    # TPU single-tree scenes only): walk the bounce ray + envmap shadow +
-    # point shadow — which share their origins — in ONE batched-K packet
-    # traversal, paying the per-node scalar readback stall, the fixed
-    # per-packet cost and the ray-operand DMA once for the union of the
-    # three classes. Identical per-pixel radiance (shadow classes only
-    # contribute their blocked/unblocked bit; the bounce class is
-    # decision-equivalent to the separate walk).
-    fused_secondary: bool = True
 
     # Bounce-boundary ray compaction (integrator/path_tracer.py): after the
     # primary trace, pack the surviving (hit) lanes densely into a buffer of
     # compact_frac * n rays and run the whole NEE + bounce loop at that
     # size — sky lanes stop paying for shading, gathers AND the incoherent
-    # secondary traversals (dead packets at the compacted tail are skipped
-    # by the packet kernel). Per-pixel output is identical up to XLA fusion
+    # secondary traversals (dead lanes at the compacted tail finish their
+    # walk at once). Per-pixel output is identical up to XLA fusion
     # reassociation: every sample stream is keyed on (pixel, frame), not
     # lane position, so the math is the same, but the two programs fuse
     # differently and float reassociation can flip grazing shadow-

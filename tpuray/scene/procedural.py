@@ -5,10 +5,14 @@ without the reference's assets.
 """
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 
 from tpuray.accel.bvh import build_bvh
-from tpuray.scene.builder import make_env_cache, make_material_table, procedural_room_envmap
+from tpuray.scene.builder import (
+    REFERENCE_LIGHTS, make_env_cache, make_material_table,
+    procedural_room_envmap)
 from tpuray.scene.types import (
     BVHSoA, EnvMap, MaterialTable, PointLights, Scene, TriangleSoA,
 )
@@ -116,15 +120,13 @@ def make_test_scene(subdiv: int = 2, with_lights: bool = True,
 
 
 def make_large_scene(n_spheres: int = 25, subdiv: int = 3,
-                     max_chunk_tris: int = 8192, leaf_size: int = 8,
-                     env_width: int = 128, seed: int = 11) -> Scene:
-    """Procedural large scene (n_spheres * 20*4^subdiv tris + ground) built
-    as a uniform chunked forest — exercises the beyond-SMEM traversal path
-    (kernels/trace_chunked.py). 25 spheres at subdiv 3 ~= 32k tris;
+                     leaf_size: int = 8, env_width: int = 128,
+                     seed: int = 11) -> Scene:
+    """Procedural large scene: n_spheres icospheres (20*4^subdiv tris each)
+    scattered over a ground quad, built as one BVH. 25 spheres at subdiv 2
+    ~= 8k tris (the reference clock model's scale); subdiv 3 ~= 32k;
     subdiv 4 ~= 128k; subdiv 5 ~= 512k.
     """
-    from tpuray.scene.partition import apply_perm_padded, build_forest_bvh_uniform
-
     rs = np.random.RandomState(seed)
     blobs = []
     for i in range(n_spheres):
@@ -142,18 +144,21 @@ def make_large_scene(n_spheres: int = 25, subdiv: int = 3,
         [np.tile(b.mean(axis=(0, 1)), (len(b), 1)) for b in blobs]
         + [np.zeros((len(ground), 3), np.float32)]).astype(np.float32)
 
-    f = build_forest_bvh_uniform(tris, leaf_size, max_chunk_tris)
-    perm = f["perm"]
-    tris_p = apply_perm_padded(tris, perm)
-    mat_p = apply_perm_padded(mat_id, perm).astype(np.int32)
-    ctr_p = apply_perm_padded(centers, perm)
+    bvh = build_bvh(tris, leaf_size)
+    perm = bvh["perm"]
+    tris_p = tris[perm]
+    mat_p = mat_id[perm]
+    ctr_p = centers[perm]
 
     # smooth sphere normals (= direction from blob center), flat ground
     normals = np.empty_like(tris_p)
+    is_ground = np.zeros(len(tris), bool)
+    is_ground[-len(ground):] = True
+    is_ground = is_ground[perm]
     for k in range(3):
         v = tris_p[:, k, :] - ctr_p
         n = v / np.maximum(np.linalg.norm(v, axis=-1, keepdims=True), 1e-9)
-        normals[:, k, :] = np.where((mat_p == 1)[:, None],
+        normals[:, k, :] = np.where(is_ground[:, None],
                                     np.asarray([0.0, 1.0, 0.0]), n)
 
     uvs = np.zeros((len(tris_p), 3, 2), np.float32)
@@ -169,10 +174,9 @@ def make_large_scene(n_spheres: int = 25, subdiv: int = 3,
         uv2=jnp.asarray(uvs[:, 2]),
         mat_id=jnp.asarray(mat_p), obj_id=jnp.asarray(mat_p))
     bvh_soa = BVHSoA(
-        aabb_min=jnp.asarray(f["aabb_min"]), aabb_max=jnp.asarray(f["aabb_max"]),
-        first_tri=jnp.asarray(f["first_tri"]), tri_count=jnp.asarray(f["tri_count"]),
-        skip=jnp.asarray(f["skip"]),
-        chunk_nodes=int(f["chunk_nodes"]), chunk_tris=int(f["chunk_tris"]))
+        aabb_min=jnp.asarray(bvh["aabb_min"]), aabb_max=jnp.asarray(bvh["aabb_max"]),
+        first_tri=jnp.asarray(bvh["first_tri"]), tri_count=jnp.asarray(bvh["tri_count"]),
+        skip=jnp.asarray(bvh["skip"]))
 
     materials = make_material_table([
         dict(base_color=(0.75, 0.35, 0.3), roughness=0.4, metallic=0.2),
@@ -186,3 +190,22 @@ def make_large_scene(n_spheres: int = 25, subdiv: int = 3,
                  cache=jnp.asarray(make_env_cache(env_img)))
     return Scene(triangles=soa, bvh=bvh_soa, materials=materials,
                  lights=lights, envmap=env, textures=None)
+
+
+ASSET_ENVMAP = Path(__file__).resolve().parents[2] / "assets" / "recovered_env.hdr"
+
+
+def make_interactive_scene(seed: int = 11) -> Scene:
+    """The reference's interactive workload at its model's scale, from the
+    repo alone: 25 icospheres at subdiv 2 over a ground quad (8002
+    triangles; the reference clock model has ~8.3k), the reference's four
+    point lights and the HDR envmap assets/recovered_env.hdr."""
+    from tpuray.io.hdr import read_hdr
+    scene = make_large_scene(n_spheres=25, subdiv=2, seed=seed)
+    env_img = read_hdr(str(ASSET_ENVMAP))
+    env = EnvMap(image=jnp.asarray(env_img),
+                 cache=jnp.asarray(make_env_cache(env_img)))
+    lights = PointLights(
+        position=jnp.asarray([p for p, _ in REFERENCE_LIGHTS], jnp.float32),
+        radiance=jnp.asarray([r for _, r in REFERENCE_LIGHTS], jnp.float32))
+    return scene.replace(lights=lights, envmap=env)

@@ -1,8 +1,8 @@
 """Scene model as JAX pytrees (flat SoA arrays).
 
 The reference stores the scene as interleaved GL texture-buffer records
-(15 vec3 per triangle, 4 vec3 per BVH node — /root/reference/main.cpp:100-133,
-Utils/Triangle.h:12-24). On TPU we keep structure-of-arrays pytrees instead:
+(15 vec3 per triangle, 4 vec3 per BVH node — reference main.cpp:100-133,
+Utils/Triangle.h:12-24). Here the scene is structure-of-arrays pytrees:
 every field is a contiguous array, gathers stay dense, and the whole scene is
 a pytree that can be donated, replicated, or sharded with jax.sharding.
 
@@ -18,18 +18,24 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-import numpy as np
-from flax import struct
 
 Array = jax.Array
 
 
-@struct.dataclass
+def pytree_dataclass(cls):
+    """Frozen dataclass registered as a JAX pytree (every field a leaf),
+    with a `.replace(**changes)` method."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    cls.replace = lambda self, **changes: dataclasses.replace(self, **changes)
+    return jax.tree_util.register_dataclass(cls)
+
+
+@pytree_dataclass
 class MaterialTable:
     """Disney BSDF parameter table, one row per material.
 
     Mirrors the 14 parameters of the reference material
-    (/root/reference/Utils/Material.h:5-20). Negative base_color / metallic /
+    (reference Utils/Material.h:5-20). Negative base_color / metallic /
     roughness mean "fetch from the texture stack" (main.cpp:72-78,
     path_tracing.frag:332-364).
     """
@@ -67,7 +73,7 @@ class MaterialTable:
         return self.subsurface.shape[0]
 
 
-@struct.dataclass
+@pytree_dataclass
 class TriangleSoA:
     """Triangle geometry, SoA. Indexed in BVH leaf order (post-build permutation)."""
 
@@ -88,13 +94,13 @@ class TriangleSoA:
         return self.p0.shape[0]
 
 
-@struct.dataclass
+@pytree_dataclass
 class BVHSoA:
     """Threaded (stackless) BVH in DFS preorder.
 
     The reference traverses a left/right-child BVH with an explicit 256-entry
-    stack per fragment (path_tracing.frag:372-424). On TPU, per-ray stacks
-    make the wavefront state huge and divergent; instead nodes are laid out in
+    stack per fragment (path_tracing.frag:372-424). A per-ray stack makes
+    wavefront state huge and divergent; instead nodes are laid out in
     DFS preorder and each node stores a *skip link*: the preorder index of the
     next node once this subtree is done (n_nodes = terminator). Traversal
     state per ray is then a single int pointer:
@@ -110,25 +116,13 @@ class BVHSoA:
     first_tri: Array  # (N,) int32 (leaf only; 0 for inner)
     tri_count: Array  # (N,) int32 (0 => inner node)
     skip: Array       # (N,) int32 preorder escape pointer; n_nodes = done
-    # Forest chunking (scene/partition.py, uniform layout): chunk c owns
-    # nodes [c*chunk_nodes, (c+1)*chunk_nodes) and triangles
-    # [c*chunk_tris, (c+1)*chunk_tris), padded with never-hit entries.
-    # 0 = unchunked single tree. Static (non-pytree) so jit specializes.
-    chunk_nodes: int = struct.field(pytree_node=False, default=0)
-    chunk_tris: int = struct.field(pytree_node=False, default=0)
 
     @property
     def count(self) -> int:
         return self.aabb_min.shape[0]
 
-    @property
-    def n_chunks(self) -> int:
-        if not self.chunk_nodes:
-            return 1
-        return self.aabb_min.shape[0] // self.chunk_nodes
 
-
-@struct.dataclass
+@pytree_dataclass
 class PointLights:
     """Point lights with quadratic falloff (Utils/PointLight.h:4-15)."""
 
@@ -147,7 +141,7 @@ class PointLights:
         )
 
 
-@struct.dataclass
+@pytree_dataclass
 class EnvMap:
     """Equirectangular HDR environment light + importance-sampling cache.
 
@@ -170,7 +164,7 @@ class EnvMap:
         return self.image.shape[1]
 
 
-@struct.dataclass
+@pytree_dataclass
 class TextureStack:
     """Per-object PBR texture stack: 4 layers per object
     (albedo, metallic, normal, roughness), like the reference's
@@ -185,7 +179,7 @@ class TextureStack:
         return self.data.shape[0]
 
 
-@struct.dataclass
+@pytree_dataclass
 class Scene:
     triangles: TriangleSoA
     bvh: BVHSoA
@@ -195,7 +189,7 @@ class Scene:
     textures: Optional[TextureStack] = None
 
 
-@struct.dataclass
+@pytree_dataclass
 class Camera:
     """Pinhole camera. Primary ray dir = R_c2w @ (px, py, -1) with the NDC
     pix in [-1, 1] (90-degree vfov like Utils/camera.h:5-6,37 and
@@ -218,14 +212,6 @@ class Camera:
         ys = -ys  # row 0 at top
         px, py = jnp.meshgrid(xs * self.tan_half_fov, ys * self.tan_half_fov)
         d_cam = jnp.stack([px, py, -jnp.ones_like(px)], axis=-1)
-        d_world = jnp.einsum("ij,hwj->hwi", self.cam_to_world, d_cam)
+        d_world = jnp.einsum("ij,hwj->hwi", self.cam_to_world, d_cam,
+                             precision=jax.lax.Precision.HIGHEST)
         return d_world / jnp.linalg.norm(d_world, axis=-1, keepdims=True)
-
-
-def tree_size_bytes(tree) -> int:
-    """Total bytes of all array leaves (for VMEM/HBM budgeting)."""
-    return sum(
-        np.prod(x.shape) * x.dtype.itemsize
-        for x in jax.tree_util.tree_leaves(tree)
-        if hasattr(x, "shape")
-    )

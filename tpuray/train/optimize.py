@@ -4,7 +4,7 @@ The path tracer (tpuray.integrator.path_tracer) is pure differentiable jnp
 with hit topology stopped, so pixel gradients flow to MaterialTable rows,
 PointLights radiance/position, and the envmap image. This module provides
 the training step — single-device and mesh-parallel (rows sharded, gradient
-psum over the 'tiles' axis riding ICI, overlapped by XLA with the backward).
+psum over the 'tiles' axis on NCCL over NVLink, overlapped by XLA with the backward).
 The reference has no training capability; this realizes BASELINE.md's
 "gradient fidelity" target.
 """
@@ -55,7 +55,7 @@ def render_flat(scene: Scene, camera: Camera, cfg: RenderConfig,
     pt = trace_paths(
         scene, jnp.broadcast_to(camera.eye, (n, 3)), dirs.reshape(n, 3),
         xx.reshape(n), (height - 1 - yy).reshape(n),
-        jnp.asarray(frame, jnp.uint32), cfg, common_origin=True)
+        jnp.asarray(frame, jnp.uint32), cfg)
     return pt.color.reshape(height, width, 3)
 
 
@@ -112,7 +112,8 @@ def make_sharded_train_step(rebuild: Callable, cfg: RenderConfig, height: int,
         xs = (2.0 * (xx.astype(jnp.float32) + 0.5) / width - 1.0) * tan_half_fov
         ys = -(2.0 * (yy.astype(jnp.float32) + 0.5) / height - 1.0) * tan_half_fov
         d_cam = jnp.stack([xs, ys, -jnp.ones_like(xs)], axis=-1)
-        d = jnp.einsum("ij,hwj->hwi", cam_to_world, d_cam)
+        d = jnp.einsum("ij,hwj->hwi", cam_to_world, d_cam,
+                       precision=jax.lax.Precision.HIGHEST)
         d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
         n = rows * width
         pt = trace_paths(scene, jnp.broadcast_to(eye, (n, 3)), d.reshape(n, 3),
@@ -126,7 +127,7 @@ def make_sharded_train_step(rebuild: Callable, cfg: RenderConfig, height: int,
         row0 = jax.lax.axis_index("tiles") * rows
         loss, grads = jax.value_and_grad(tile_loss)(
             params, target_t, row0, eye, cam_to_world, tan_half_fov, frame)
-        # gradient all-reduce over ICI; loss too (it is a global mean)
+        # gradient all-reduce (NCCL over NVLink); loss too (it is a global mean)
         grads = jax.lax.psum(grads, "tiles")
         loss = jax.lax.psum(loss, "tiles")
         updates, opt_state = optimizer.update(grads, opt_state, params)

@@ -1,8 +1,8 @@
 """Interactive viewer: a render thread + a threaded HTTP server.
 
-TPU-native equivalent of the reference's interactive layer — the GLFW frame
+Equivalent of the reference's interactive layer — the GLFW frame
 loop and input callbacks (main.cpp:345-603, 614-663) and the imgui parameter
-/ debug-view windows (main.cpp:363-431) — redesigned for remote TPU hosts:
+/ debug-view windows (main.cpp:363-431) — redesigned for remote GPU hosts:
 the device renders, a stdlib HTTP server streams PNG frames to any browser,
 and control events (orbit / dolly / pan / sliders / debug view) come back as
 JSON. Any camera or parameter change resets temporal accumulation, exactly

@@ -1,6 +1,6 @@
 """Single-page viewer UI (HTML+JS, no external assets).
 
-TPU-native replacement for the reference's interactive surface: the imgui
+Replacement for the reference's interactive surface: the imgui
 parameter/debug windows (main.cpp:363-431), the GLFW mouse/scroll camera
 callbacks (main.cpp:614-655), and the ms/frame readout (main.cpp:428) — as a
 browser page talking to tpuray.viewer.server over HTTP.
