@@ -15,8 +15,8 @@ Phases (one GPU):
   d  full frame: 16 Renderer.step frames on a moving orbit at 800x800,
      depth 2, SVGF + TAA; checks the lowered frame calls the kernel
   e  frame parity: the first 4 frames at 128x128 on the GPU and on the CPU
-  f  denoiser: the jnp SVGF chain at 800x800 and 1920x1080, per reprojection
-     read mode, and the a-trous chain's bytes per pixel
+  f  denoiser: the jnp SVGF chain at 800x800 and 1920x1080, and the a-trous
+     chain's bytes per pixel
   g  training: 3 make_train_step steps at 256x256, depth 1
 
 Every phase prints one JSON line with its numbers and the card's name and
@@ -313,12 +313,9 @@ def phase_f(ctx):
     out = {}
     for h, w in DENOISE_SIZES:
         args = _denoise_inputs(h, w)
-        for mode in ("exact", "tiled"):
-            cfg = interactive_cfg(reproject_gather=mode).replace(
-                width=w, height=h)
-            f = jax.jit(lambda *a, cfg=cfg: svgf_pipeline(*a, cfg).taa)
-            out[f"svgf_{h}p_{mode}"] = timed(lambda: f(*args))
         cfg = interactive_cfg().replace(width=w, height=h)
+        f = jax.jit(lambda *a, cfg=cfg: svgf_pipeline(*a, cfg).taa)
+        out[f"svgf_{h}p"] = timed(lambda: f(*args))
 
         @jax.jit
         def chain(illum, var, gbuf):
@@ -371,13 +368,26 @@ def phase_g(ctx):
     return ok
 
 
-# Sharded and one-GPU frames are different programs (per-shard compaction,
-# other fusion shapes), so float reassociation can flip an isolated grazing
-# hit or shadow test, and five a-trous iterations plus TAA then spread each
-# flip over up to ~65x65 pixels. Tolerance: mean absolute error <= FOUR_MAE,
-# and at most FOUR_SHARE of pixels beyond 5e-4.
-FOUR_MAE = 5e-3
-FOUR_SHARE = 0.05
+# The sharded frame traces, compacts and shades each shard's rays as its own
+# program, so float reassociation may flip an isolated grazing hit or
+# shadow test, which the a-trous chain and TAA spread locally; the denoiser
+# itself computes what one GPU does. Tolerance (the multi-device CPU test's,
+# tests/test_dist_frame.py): at most FOUR_SHARE of pixels beyond 5e-4, and
+# no pixel off by FOUR_MAX or more.
+FOUR_SHARE = 0.005
+FOUR_MAX = 0.1
+
+
+def _diff(a, b, shards):
+    """Per-pixel max-channel |a - b| summary, with the share beyond 5e-4 in
+    each shard's rows (a fault at shard seams shows as uneven shares)."""
+    import numpy as np
+    d = np.abs(a - b).max(-1)
+    bands = np.array_split(d > 5e-4, shards, axis=0)
+    return d, {"share_beyond_5e_4": float((d > 5e-4).mean()),
+               "max_abs": float(d.max()),
+               "mae": float(np.abs(a - b).mean()),
+               "share_beyond_5e_4_per_shard": [float(x.mean()) for x in bands]}
 
 
 def phase_four(ctx):
@@ -396,12 +406,12 @@ def phase_four(ctx):
         make_sharded_train_step, make_train_step, split_trainable)
     assert len(jax.devices()) >= 4, "--four needs four GPUs"
     scene = ctx["scene"]
-    cfg = interactive_cfg(reproject_gather="tiled")
+    cfg = interactive_cfg()
     mesh = make_mesh(4)
     cam = orbit()
     single = FrameState.initial(SIZE, SIZE)
     sharded = shard_state(FrameState.initial(SIZE, SIZE), mesh)
-    ms_single, ms_sharded = [], []
+    ms_single, ms_sharded, per_frame = [], [], []
     for i in range(4):
         cam.rotate(1.0, 0.0)
         c = cam.snapshot()
@@ -410,15 +420,17 @@ def phase_four(ctx):
         a = np.asarray(out.final)
         ms_single.append((time.perf_counter() - t0) * 1e3)
         t0 = time.perf_counter()
-        sharded, final, _ = render_frame_sharded(
+        sharded, final, pt = render_frame_sharded(
             scene, c, sharded, cfg, SIZE, SIZE, mesh, halo=32,
             static_camera=False)
         b = np.asarray(final)
         ms_sharded.append((time.perf_counter() - t0) * 1e3)
-    d = np.abs(a - b).max(-1)
-    mae = float(np.abs(a - b).mean())
-    frame_ok = bool(np.isfinite(b).all() and mae <= FOUR_MAE
-                    and (d > 5e-4).mean() <= FOUR_SHARE)
+        # the path-traced input of the denoiser, before any spreading
+        _, pt_stats = _diff(np.asarray(out.pt_color), np.asarray(pt), 4)
+        d, final_stats = _diff(a, b, 4)
+        per_frame.append({"final": final_stats, "pt_color": pt_stats})
+    frame_ok = bool(np.isfinite(b).all()
+                    and (d > 5e-4).mean() <= FOUR_SHARE and d.max() < FOUR_MAX)
 
     size = 256
     tcfg = interactive_cfg(size).replace(max_tracing_depth=1)
@@ -434,12 +446,11 @@ def phase_four(ctx):
         target, NamedSharding(mesh, P("tiles"))), tcam, 0)
     rel = abs(float(l1) - float(l4)) / max(abs(float(l1)), 1e-30)
     train_ok = bool(np.isfinite(float(l4)) and rel < 1e-3)
-    emit("four_gpu", ok=frame_ok and train_ok, size=SIZE,
-         frame_mae=mae, frame_share_beyond_5e_4=float((d > 5e-4).mean()),
-         frame_max_abs=float(d.max()), tol_mae=FOUR_MAE,
-         tol_share=FOUR_SHARE, single_frame_ms=ms_single,
-         sharded_frame_ms=ms_sharded, loss_single=float(l1),
-         loss_sharded=float(l4), loss_rel_diff=rel)
+    emit("four_gpu", ok=frame_ok and train_ok, size=SIZE, frames=4,
+         frame=per_frame[-1]["final"], tol_share=FOUR_SHARE,
+         tol_max=FOUR_MAX, per_frame=per_frame,
+         single_frame_ms=ms_single, sharded_frame_ms=ms_sharded,
+         loss_single=float(l1), loss_sharded=float(l4), loss_rel_diff=rel)
     return frame_ok and train_ok
 
 

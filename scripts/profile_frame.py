@@ -59,8 +59,6 @@ def main():
     results["frame_no_svgf"] = frame_with(base.replace(enable_svgf=False))
     results["frame_no_taa"] = frame_with(base.replace(enable_taa=False))
     results["frame_depth1"] = frame_with(base.replace(max_tracing_depth=1))
-    results["frame_tile_coherent"] = frame_with(
-        base.replace(tile_coherent_sampling=True))
 
     # trace_paths alone (integrator incl. shading/NEE, no denoise/gbuffer)
     xx, yy = tile_pixel_coords(h, w)

@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from tpuray.accel.bvh import build_bvh, validate_bvh
+from tpuray.accel.bvh import MAX_LEAF_SIZE, build_bvh, validate_bvh
 from tpuray.io import native
 from tpuray.io.fallback import build_bvh_py
 from tpuray.integrator.intersect import trace, trace_bruteforce
@@ -119,3 +119,15 @@ def test_tmax_occlusion(rng):
     assert int(i[0]) == -1      # hit at t=2 beyond t_max=1
     assert int(i[1]) == 0
     np.testing.assert_allclose(float(t[1]), 2.0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("leaf_size", [0, MAX_LEAF_SIZE + 1])
+def test_leaf_size_outside_kernel_limit_refused(rng, leaf_size):
+    """The GPU kernel's node record holds a leaf count of at most
+    MAX_LEAF_SIZE; a larger leaf_size must fail at build time, where the
+    arrays are concrete, not trace wrong triangles under jit."""
+    from tpuray.scene.procedural import make_test_scene
+    with pytest.raises(ValueError, match="leaf_size"):
+        build_bvh(random_tris(rng), leaf_size=leaf_size)
+    with pytest.raises(ValueError, match="leaf_size"):
+        make_test_scene(subdiv=1, env_width=16, leaf_size=leaf_size)

@@ -53,9 +53,6 @@ def test_budget_rounding():
     assert _compact_budget(4096, cfg) == 2048
     assert _compact_budget(640000, cfg) % 512 == 0
     assert _compact_budget(4096, RenderConfig(compact_frac=0.0)) == 0
-    # tile-coherent mode is pixel-keyed (round 4): composes with compaction
-    assert _compact_budget(
-        4096, RenderConfig(compact_frac=0.5, tile_coherent_sampling=True)) == 2048
     # budget >= n degenerates to the plain loop
     assert _compact_budget(300, cfg) == 0
 
@@ -89,29 +86,6 @@ def test_overflow_residual_pass(scene):
     np.testing.assert_allclose(np.asarray(ref.color), np.asarray(com.color), rtol=2e-4, atol=2e-5)
     np.testing.assert_array_equal(np.asarray(ref.first_hit_valid),
                                   np.asarray(com.first_hit_valid))
-
-
-def test_coherent_sampling_survives_compaction(scene):
-    """tile_coherent_sampling + compaction (ADVICE r4: the compacted branch
-    silently dropped coherent=True): compacted vs uncompacted must agree,
-    and the coherent stream must actually differ from the per-pixel one."""
-    size, depth = 64, 2
-    cam = OrbitCamera(width=size, height=size).snapshot()
-    o, d, px, py = _rays(size, cam)
-
-    def run(frac, coh):
-        cfg = RenderConfig(width=size, height=size, max_tracing_depth=depth,
-                           compact_frac=frac, tile_coherent_sampling=coh)
-        return jax.jit(
-            lambda: trace_paths(scene, o, d, px, py, jnp.uint32(3), cfg))()
-
-    ref = run(0.0, True)
-    com = run(0.5, True)
-    np.testing.assert_allclose(np.asarray(ref.color), np.asarray(com.color),
-                               rtol=2e-4, atol=2e-5)
-    # and the coherent stream is live (differs from per-pixel sampling)
-    pp = run(0.5, False)
-    assert np.abs(np.asarray(pp.color) - np.asarray(com.color)).max() > 1e-4
 
 
 def test_full_frame_matches(scene):

@@ -1,5 +1,6 @@
 """SVGF stages + TAA: contracts each stage must satisfy."""
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
 from tpuray.denoise.atrous import atrous_iteration
@@ -178,105 +179,98 @@ def test_taa_static_matches_general(rng):
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5, atol=1e-6)
 
 
-def test_fast_reproject_matches_exact_for_smooth_motion(rng):
-    """fast_reproject (rescue taps from shifted base gathers) equals the
-    exact 4-quad rescue wherever the motion field is locally constant."""
-    normal, z, fw_n, fw_z = flat_gbuffer(rng)
-    albedo = jnp.full((H, W, 3), 0.5)
-    emission = jnp.zeros((H, W, 3))
-    # constant integer+fraction motion: 2.25 px right, 1.5 px down in uv
-    motion = jnp.stack([jnp.full((H, W), 2.25 / W), jnp.full((H, W), 1.5 / H)],
-                       axis=-1)
-    color = jnp.asarray(rng.random((H, W, 3)).astype(np.float32))
-    prev_illum = jnp.asarray(rng.random((H, W, 3)).astype(np.float32))
-    prev_var = jnp.asarray(rng.random((H, W)).astype(np.float32))
-    prev_moments = jnp.asarray(rng.random((H, W, 2)).astype(np.float32))
-    prev_hist = jnp.full((H, W), 5.0)
-    # make the bilinear taps FAIL (prev depth differs) on a block so the
-    # rescue path is exercised, with prev normals valid there via 3x3
-    prev_z = z.at[8:16, 8:16].add(5.0)
+def _shard(x, shard, rows, halo):
+    """Rows [shard*rows - halo, (shard+1)*rows + halo) of x, edge rows
+    repeated past the image, as the row-sharded frame's halo exchange
+    builds them (tpuray.dist.frame)."""
+    x = np.asarray(x)
+    pad = np.pad(x, ((halo, halo),) + ((0, 0),) * (x.ndim - 1), mode="edge")
+    return jnp.asarray(pad[shard * rows:(shard + 1) * rows + 2 * halo])
 
-    args = dict(color=color, emission=emission, albedo=albedo, motion=motion,
+
+def _moving_history(rng):
+    """Reprojection inputs with per-pixel motion of up to ~2.5 px in both
+    directions (so the top and bottom rows read off-image) and a block
+    whose bilinear taps fail, so the 3x3 rescue engages."""
+    normal, z, fw_n, fw_z = flat_gbuffer(rng)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    motion = np.stack([(1.3 + np.sin(yy / 5.0)) / W,
+                       2.4 * np.cos(xx / 4.0) / H], -1).astype(np.float32)
+    f = lambda *shape: jnp.asarray(rng.random(shape).astype(np.float32))
+    return dict(color=f(H, W, 3), emission=jnp.zeros((H, W, 3)),
+                albedo=jnp.full((H, W, 3), 0.5), motion=jnp.asarray(motion),
                 normal=normal, linear_z=z, fwidth_normal=fw_n, fwidth_z=fw_z,
-                prev_illum=prev_illum, prev_variance=prev_var,
-                prev_normal=normal, prev_linear_z=prev_z,
-                prev_moments=prev_moments, prev_history_len=prev_hist)
-    exact = reproject(**args, cfg=CFG)
-    fast = reproject(**args, cfg=CFG.replace(fast_reproject=True))
-    interior = np.s_[4:-4, 4:-4]
-    np.testing.assert_allclose(np.asarray(fast.illum)[interior],
-                               np.asarray(exact.illum)[interior],
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(fast.history_len)[interior],
-                               np.asarray(exact.history_len)[interior],
-                               rtol=1e-5, atol=1e-5)
+                prev_illum=f(H, W, 3), prev_variance=f(H, W),
+                prev_normal=normal, prev_linear_z=z.at[8:16, 8:16].add(5.0),
+                prev_moments=f(H, W, 2), prev_history_len=jnp.full((H, W), 5.0))
 
 
-def test_tiled_reproject_matches_exact(rng):
-    """reproject_gather='tiled' (tile-windowed fetch) must
-    equal the exact gather path for smooth motion — including where the
-    bilinear taps fail and the 3x3 rescue engages."""
-    normal, z, fw_n, fw_z = flat_gbuffer(rng)
-    albedo = jnp.full((H, W, 3), 0.5)
-    emission = jnp.zeros((H, W, 3))
-    # constant integer+fraction motion exercises bilinear weights
-    motion = jnp.stack([jnp.full((H, W), 2.25 / W), jnp.full((H, W), 1.5 / H)],
-                       axis=-1)
-    color = jnp.asarray(rng.random((H, W, 3)).astype(np.float32))
-    prev_illum = jnp.asarray(rng.random((H, W, 3)).astype(np.float32))
-    prev_var = jnp.asarray(rng.random((H, W)).astype(np.float32))
-    prev_moments = jnp.asarray(rng.random((H, W, 2)).astype(np.float32))
-    prev_hist = jnp.full((H, W), 5.0)
-    prev_z = z.at[8:16, 8:16].add(5.0)  # force rescue inside a block
-
-    args = dict(color=color, emission=emission, albedo=albedo, motion=motion,
-                normal=normal, linear_z=z, fwidth_normal=fw_n, fwidth_z=fw_z,
-                prev_illum=prev_illum, prev_variance=prev_var,
-                prev_normal=normal, prev_linear_z=prev_z,
-                prev_moments=prev_moments, prev_history_len=prev_hist)
-    exact = reproject(**args, cfg=CFG.replace(reproject_gather="exact"))
-    tiled = reproject(**args, cfg=CFG.replace(reproject_gather="tiled"))
-    # compare where the reprojected base lands in-image: at the inflow
-    # border (first ~3 columns here) the tiled path conservatively rejects
-    # taps whose base is off-image while the exact path's clamped quad
-    # fetch keeps them — documented border-only divergence
-    interior = np.s_[2:-2, 4:-2]
-    for a, b in zip(tiled, exact):
-        np.testing.assert_allclose(np.asarray(a)[interior],
-                                   np.asarray(b)[interior],
-                                   rtol=1e-5, atol=1e-5)
+@pytest.mark.parametrize("shard", [0, 1, 2, 3])
+def test_reproject_row_window_matches_whole_image(rng, shard):
+    """A halo-extended row shard (row_window) reprojects its rows exactly as
+    the whole image does while the motion stays inside the halo."""
+    rows, halo = H // 4, 4
+    args = _moving_history(rng)
+    whole = reproject(**args, cfg=CFG)
+    part = reproject(**{k: _shard(v, shard, rows, halo)
+                        for k, v in args.items()},
+                     cfg=CFG, row_window=(shard * rows - halo, H))
+    own = np.s_[shard * rows:(shard + 1) * rows]
+    for a, b in zip(whole, part):
+        np.testing.assert_allclose(np.asarray(b)[halo:-halo],
+                                   np.asarray(a)[own], rtol=1e-6, atol=1e-6)
 
 
-def test_tiled_reproject_no_nans_wild_motion(rng):
-    """Wild per-pixel motion: the tiled path must stay finite and behave as
-    'reprojection failed' (history restarts) rather than fetching garbage."""
-    normal, z, fw_n, fw_z = flat_gbuffer(rng)
-    albedo = jnp.full((H, W, 3), 0.5)
-    emission = jnp.zeros((H, W, 3))
-    motion = jnp.asarray((rng.random((H, W, 2)) - 0.5).astype(np.float32))
-    color = jnp.asarray(rng.random((H, W, 3)).astype(np.float32))
-    prev_illum = jnp.asarray(rng.random((H, W, 3)).astype(np.float32))
-    prev_var = jnp.asarray(rng.random((H, W)).astype(np.float32))
-    prev_moments = jnp.asarray(rng.random((H, W, 2)).astype(np.float32))
-    prev_hist = jnp.full((H, W), 5.0)
-    out = reproject(color, emission, albedo, motion, normal, z, fw_n, fw_z,
-                    prev_illum, prev_var, normal, z, prev_moments, prev_hist,
-                    CFG.replace(reproject_gather="tiled"))
-    for a in out:
+def test_reproject_row_window_far_reads_fail(rng):
+    """History reads beyond the shard's halo count as failed taps (history
+    restarts, values finite); reads inside it equal the whole image's."""
+    rows, halo, shard = H // 4, 2, 1
+    args = _moving_history(rng)
+    args["motion"] = jnp.stack([jnp.zeros((H, W)), jnp.full((H, W), 6.0 / H)],
+                               -1)  # every pixel reads the row 6 above
+    args["prev_linear_z"] = args["linear_z"]  # every tap valid in the image
+    whole = reproject(**args, cfg=CFG)
+    part = reproject(**{k: _shard(v, shard, rows, halo)
+                        for k, v in args.items()},
+                     cfg=CFG, row_window=(shard * rows - halo, H))
+    for a in part:
         assert np.isfinite(np.asarray(a)).all()
+    hist = np.asarray(part.history_len)[halo:-halo]
+    ref = np.asarray(whole.history_len)[shard * rows:(shard + 1) * rows]
+    np.testing.assert_array_equal(ref, 6.0)
+    # local row i reads rows i-7..i-5 (rescue) and i-6, i-5 (bilinear)
+    local = np.arange(halo, halo + rows)
+    np.testing.assert_array_equal(hist[local < 5], 1.0)
+    np.testing.assert_array_equal(hist[local >= 6], 6.0)
 
 
-def test_taa_tiled_fetch_matches_gather(rng):
-    """taa(tiled_fetch=True) must equal the gather path for smooth motion
-    (away from image borders, where the tiled path conservatively rejects
-    rather than clamps)."""
-    z = jnp.full((H, W), 2.0)
-    cur = jnp.asarray(rng.random((H, W, 3)).astype(np.float32))
-    prev = jnp.asarray(rng.random((H, W, 3)).astype(np.float32))
-    vel = jnp.stack([jnp.full((H, W), 1.3 / W), jnp.full((H, W), 0.6 / H)],
-                    axis=-1)
-    a = taa(cur, prev, vel, z, 3, tiled_fetch=False)
-    b = taa(cur, prev, vel, z, 3, tiled_fetch=True)
-    interior = np.s_[3:-3, 3:-3]
-    np.testing.assert_allclose(np.asarray(b)[interior],
-                               np.asarray(a)[interior], rtol=1e-5, atol=1e-5)
+@pytest.mark.parametrize("shard", [0, 1, 2, 3])
+def test_taa_row_window_matches_whole_image(rng, shard):
+    rows, halo = H // 4, 4
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    vel = np.stack([(1.3 + np.sin(yy / 5.0)) / W,
+                    2.4 * np.cos(xx / 4.0) / H], -1).astype(np.float32)
+    z = np.full((H, W), 2.0, np.float32)
+    z[:, :3] = 1.0   # sky passthrough
+    cur = rng.random((H, W, 3)).astype(np.float32)
+    prev = rng.random((H, W, 3)).astype(np.float32)
+    whole = taa(jnp.asarray(cur), jnp.asarray(prev), jnp.asarray(vel),
+                jnp.asarray(z), 3)
+    part = taa(*(_shard(x, shard, rows, halo) for x in (cur, prev, vel, z)),
+               3, row_window=(shard * rows - halo, H))
+    np.testing.assert_allclose(
+        np.asarray(part)[halo:-halo],
+        np.asarray(whole)[shard * rows:(shard + 1) * rows],
+        rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("yc,row0,h,gh,held", [
+    (5, 2, 8, 32, True),     # both rows of the quad inside the shard
+    (1, 2, 8, 32, False),    # above the shard
+    (9, 2, 8, 32, False),    # the quad's second row is past the shard
+    (31, 24, 8, 32, True),   # image's last row: the quad repeats it
+    (31, 0, 32, 32, True),   # whole image
+])
+def test_quad_in_rows(yc, row0, h, gh, held):
+    from tpuray.denoise.common import quad_in_rows
+    assert bool(quad_in_rows(jnp.int32(yc), (row0, gh), h)) == held

@@ -1,5 +1,5 @@
 """The jnp SVGF stages against plain per-pixel numpy references: reprojection
-(both read modes), the spatial variance fallback, one a-trous iteration and
+(whole image and row shard), the spatial variance fallback, one a-trous iteration and
 the a-trous chain with its history tap."""
 import numpy as np
 import pytest
@@ -188,21 +188,31 @@ def make_buffers(seed, motion="smooth", sky=False):
                 prev_moments=f(H, W, 2), prev_hist=np.floor(f(H, W) * 8))
 
 
-# the tiled read invalidates rescue taps across motion discontinuities (its
-# documented conservative semantics), so it is held to the smooth cases
-@pytest.mark.parametrize("mode,motion,sky", [
-    ("exact", "smooth", False), ("exact", "smooth", True),
-    ("exact", "step", False), ("tiled", "smooth", False),
-    ("tiled", "smooth", True)])
-def test_reproject_matches_numpy(mode, motion, sky):
+@pytest.mark.parametrize("window,motion,sky", [
+    ("whole", "smooth", False), ("whole", "smooth", True),
+    ("whole", "step", False), ("shard", "smooth", False),
+    ("shard", "step", True)])
+def test_reproject_matches_numpy(window, motion, sky):
+    """window='shard': rows 4-7 reprojected on a halo-extended row shard
+    (row_window, as the row-sharded frame runs it)."""
     a = make_buffers(3, motion, sky)
-    cfg = RenderConfig(width=W, height=H, reproject_gather=mode)
-    out = reproject(*(jnp.asarray(a[k]) for k in (
-        "color", "emission", "albedo", "motion", "normal", "z", "fwn", "fwz",
-        "prev_illum", "prev_var", "prev_normal", "prev_z", "prev_moments",
-        "prev_hist")), cfg=cfg)
+    cfg = RenderConfig(width=W, height=H)
+    names = ("color", "emission", "albedo", "motion", "normal", "z", "fwn",
+             "fwz", "prev_illum", "prev_var", "prev_normal", "prev_z",
+             "prev_moments", "prev_hist")
     ref = np_reproject(a, cfg)
-    inner = (slice(2, H - 2), slice(2, W - 2))  # every tap in the image
+    if window == "whole":
+        out = reproject(*(jnp.asarray(a[k]) for k in names), cfg=cfg)
+        rows = slice(2, H - 2)
+    else:
+        lo, hi, halo = 4, 8, 2
+        out = reproject(*(jnp.asarray(a[k][lo - halo:hi + halo])
+                          for k in names), cfg=cfg,
+                        row_window=(lo - halo, H))
+        out = type(out)(*(x[halo:-halo] for x in out))
+        ref = {k: v[lo:hi] for k, v in ref.items()}
+        rows = slice(None)
+    inner = (rows, slice(2, W - 2))  # every tap in the image
     for k in ("illum", "variance", "moments", "history_len"):
         np.testing.assert_allclose(np.asarray(getattr(out, k))[inner],
                                    ref[k][inner], rtol=2e-4, atol=2e-5,
@@ -247,7 +257,7 @@ def test_atrous_chain_history_tap(iters, tap):
     (the input itself when the tap is past the last iteration)."""
     a = make_buffers(9)
     cfg = RenderConfig(width=W, height=H, num_atrous_iterations=iters,
-                       history_atrous_tap=tap, reproject_gather="exact")
+                       history_atrous_tap=tap)
     gbuf = GBuffer(normal=jnp.asarray(a["normal"]), linear_z=jnp.asarray(a["z"]),
                    velocity=jnp.asarray(a["motion"]),
                    fwidth_normal=jnp.asarray(a["fwn"]),

@@ -24,10 +24,9 @@ def scene():
 
 @pytest.fixture(scope="module")
 def cfg():
-    # tiled reprojection on both sides so the paths are identical; shard
-    # rows are 8, so the largest a-trous halo (2*2+1) must fit
+    # shard rows are 8, so the largest a-trous halo (2*2+1) must fit
     return RenderConfig(width=W, height=H, max_tracing_depth=1,
-                        num_atrous_iterations=2, reproject_gather="tiled")
+                        num_atrous_iterations=2)
 
 
 def assert_images_close(a, b, tol=5e-4, outlier_frac=0.005,

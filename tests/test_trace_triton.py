@@ -5,6 +5,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
+from tpuray.accel.bvh import MAX_LEAF_SIZE
 from tpuray.integrator.intersect import trace as trace_xla, trace_bruteforce
 from tpuray.kernels.trace_triton import (
     COUNT_BITS, MAX_LEAF, pack_scene, trace_triton)
@@ -164,3 +165,15 @@ def test_pack_scene_rejects_oversized_leaf(scene):
         tri_count=scene.bvh.tri_count.at[-1].set(MAX_LEAF + 1))
     with pytest.raises(AssertionError, match="leaf"):
         pack_scene(bvh, scene.triangles)
+
+
+def test_largest_leaves_under_jit():
+    """A tree built with the largest leaf the node record holds, traced with
+    the scene as a jit argument (tri_count a tracer, as in render_frame),
+    equals brute force."""
+    sc = make_test_scene(subdiv=2, env_width=16, leaf_size=MAX_LEAF_SIZE)
+    assert int(np.max(np.asarray(sc.bvh.tri_count))) > 16
+    o, d = make_rays(9, 512)
+    got = jax.jit(lambda s, o, d: trace_triton(
+        s.bvh, s.triangles, o, d, interpret=True))(sc, o, d)
+    assert_same_hits(got, trace_bruteforce(sc.triangles, o, d))

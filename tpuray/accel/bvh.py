@@ -11,14 +11,22 @@ import numpy as np
 
 from tpuray.io import fallback, native
 
+# the GPU traversal kernel packs a leaf's triangle count into 5 bits of its
+# node record (kernels/trace_triton.py); both builders keep every leaf at
+# or below leaf_size, so the limit is enforced here, on concrete input
+MAX_LEAF_SIZE = 31
+
 
 def build_bvh(tri_verts: np.ndarray, leaf_size: int = 8, force_py: bool = False) -> dict:
-    """tri_verts: (T, 3, 3) float32.
+    """tri_verts: (T, 3, 3) float32; 1 <= leaf_size <= MAX_LEAF_SIZE.
 
     Returns dict(aabb_min, aabb_max, first_tri, tri_count, skip, perm) as
     numpy arrays. `perm` maps new (leaf-order) index -> original triangle
     index; callers must reorder their triangle SoA with it.
     """
+    if not 1 <= leaf_size <= MAX_LEAF_SIZE:
+        raise ValueError(
+            f"leaf_size {leaf_size} is outside [1, {MAX_LEAF_SIZE}]")
     tri_verts = np.ascontiguousarray(tri_verts, np.float32)
     out = None if force_py else native.build_bvh_native(tri_verts, leaf_size)
     if out is None:

@@ -12,14 +12,6 @@ def luminance(c: Array) -> Array:
     return 0.2125 * c[..., 0] + 0.7154 * c[..., 1] + 0.0721 * c[..., 2]
 
 
-def gather2d(img: Array, yi: Array, xi: Array) -> Array:
-    """Clamped nearest fetch img[yi, xi] for integer index maps (H', W')."""
-    h, w = img.shape[0], img.shape[1]
-    yi = jnp.clip(yi, 0, h - 1)
-    xi = jnp.clip(xi, 0, w - 1)
-    return img[yi, xi]
-
-
 def shift2d(img: Array, dy: int, dx: int) -> Array:
     """Static-offset neighbor fetch with edge clamp (GL clamp-to-edge).
 
@@ -58,3 +50,15 @@ def inside_mask(shape: tuple[int, int], dy: int, dx: int,
     my = (ys >= 0) & (ys < gh)
     mx = (xs >= 0) & (xs < w)
     return my[:, None] & mx[None, :]
+
+
+def quad_in_rows(yc: Array, row_window: tuple, h: int) -> Array:
+    """True where the quad-packed texel at global row yc (already clamped to
+    [0, global_h - 1]) holds the same two rows locally as it would in the
+    whole image: rows yc and min(yc + 1, global_h - 1) both lie in the h
+    local rows of the row_window=(row0, global_h) shard. Reads beyond the
+    halo are False; callers treat them as failed history taps."""
+    row0, gh = row_window
+    local = yc - row0
+    return (local >= 0) & ((local <= h - 2)
+                           | ((yc >= gh - 1) & (local <= h - 1)))

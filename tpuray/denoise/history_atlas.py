@@ -22,14 +22,14 @@ C = 12  # channels per texel
 
 
 def build_atlas(illum: Array, variance: Array, normal: Array, linear_z: Array,
-                moments: Array, history_len: Array) -> tuple[Array, Array]:
-    """-> (atlas (H, W, 12), quad-packed atlas (H, W, 48))."""
+                moments: Array, history_len: Array) -> Array:
+    """-> the quad-packed atlas (H, W, 48)."""
     atlas = jnp.concatenate([
         illum, variance[..., None], normal, linear_z[..., None],
         moments, history_len[..., None],
     ], axis=-1)
     atlas = jnp.pad(atlas, ((0, 0), (0, 0), (0, C - atlas.shape[-1])))
-    return atlas, _quad_pack_nopad(atlas)
+    return _quad_pack_nopad(atlas)
 
 
 def split(row: Array):
@@ -47,8 +47,3 @@ def fetch_quad(qatlas: Array, y0: Array, x0: Array):
     xc = jnp.clip(x0, 0, w - 1)
     row = qatlas[yc, xc]  # (..., 48)
     return [split(row[..., i * C:(i + 1) * C]) for i in range(4)]
-
-
-def fetch(atlas: Array, y: Array, x: Array):
-    h, w = atlas.shape[0], atlas.shape[1]
-    return split(atlas[jnp.clip(y, 0, h - 1), jnp.clip(x, 0, w - 1)])

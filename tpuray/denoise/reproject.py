@@ -21,7 +21,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from tpuray.denoise.common import luminance
+from tpuray.denoise.common import luminance, quad_in_rows
 from tpuray.denoise.history_atlas import build_atlas, fetch_quad
 from tpuray.scene.config import RenderConfig
 
@@ -45,22 +45,6 @@ def _tap_valid(yi, xi, h, w, z_cur, fw_z, n_cur, fw_n, tap, cfg):
     return in_b & depth_ok & normal_ok
 
 
-def _gather_mode(cfg: RenderConfig) -> str:
-    """Resolve the moving-camera history-read strategy.
-
-    'exact': the per-pixel gather path (the oracle, and the faster read on
-    the H100 at 800x800, PERF.md); 'auto' resolves to it.
-    'tiled': tile-windowed fetch (denoise/tile_gather.py); exact bilinear
-    taps, conservatively-invalidated rescue taps at motion discontinuities.
-    The only read that supports row shards (row_window, dist/frame.py).
-    'fast': shift-approximated rescue taps (cfg.fast_reproject).
-    """
-    if cfg.fast_reproject:
-        return "fast"
-    mode = cfg.reproject_gather
-    return "exact" if mode == "auto" else mode
-
-
 def reproject(color: Array, emission: Array, albedo: Array,
               motion: Array, normal: Array, linear_z: Array,
               fwidth_normal: Array, fwidth_z: Array,
@@ -70,26 +54,32 @@ def reproject(color: Array, emission: Array, albedo: Array,
               cfg: RenderConfig, static_camera: bool = False,
               row_window: tuple | None = None) -> ReprojectOutput:
     # row_window=(row0, global_h): inputs are a halo-extended row shard of a
-    # taller image; all uv/pixel math runs in global coordinates so a shard
-    # computes exactly the single-device result (tpuray.dist.frame). Only
-    # the static and tiled paths support it.
+    # taller image; all uv/pixel math runs in global coordinates and a
+    # history read beyond the shard's rows counts as a failed tap, so a shard
+    # whose motion stays inside its halo computes exactly the single-device
+    # result (tpuray.dist.frame).
     if static_camera:
         return _reproject_static(
             color, emission, albedo, normal, linear_z, fwidth_normal,
             fwidth_z, prev_illum, prev_variance, prev_normal, prev_linear_z,
             prev_moments, prev_history_len, cfg, row_window)
-    if _gather_mode(cfg) == "tiled" or row_window is not None:
-        return _reproject_tiled(
-            color, emission, albedo, motion, normal, linear_z, fwidth_normal,
-            fwidth_z, prev_illum, prev_variance, prev_normal, prev_linear_z,
-            prev_moments, prev_history_len, cfg, row_window)
     h, w = color.shape[:2]
-    yy, xx = jnp.meshgrid(jnp.arange(h), jnp.arange(w), indexing="ij")
+    row0, gh = row_window if row_window is not None else (0, h)
+    yy, xx = jnp.meshgrid(jnp.arange(h) + row0, jnp.arange(w), indexing="ij")
 
     sky = linear_z == 1.0
 
-    atlas, qatlas = build_atlas(prev_illum, prev_variance, prev_normal,
-                                prev_linear_z, prev_moments, prev_history_len)
+    qatlas = build_atlas(prev_illum, prev_variance, prev_normal,
+                         prev_linear_z, prev_moments, prev_history_len)
+
+    def fetch(y, x):
+        """The quad at global (y, x) and, on a row shard, whether the shard
+        holds it (y is clamped to the image as a whole-image fetch does)."""
+        yc = jnp.clip(y, 0, gh - 1)
+        quad = fetch_quad(qatlas, yc - row0, x)
+        if row_window is None:
+            return quad, True
+        return quad, quad_in_rows(yc, row_window, h)
 
     # demodulate (svgf_reproject.frag:26-29, 174)
     illum = (color - emission) / jnp.maximum(albedo, 1e-3)
@@ -98,23 +88,23 @@ def reproject(color: Array, emission: Array, albedo: Array,
     # back-projected float pixel position: uv_prev = uv - motion; pixel
     # centers at (i + 0.5)
     uv_x = (xx.astype(jnp.float32) + 0.5) / w - motion[..., 0]
-    uv_y = (yy.astype(jnp.float32) + 0.5) / h - motion[..., 1]
+    uv_y = (yy.astype(jnp.float32) + 0.5) / gh - motion[..., 1]
     fx = uv_x * w - 0.5
-    fy = uv_y * h - 0.5
+    fy = uv_y * gh - 0.5
     x0 = jnp.floor(fx)
     y0 = jnp.floor(fy)
     if cfg.reference_quirks:
         # frac computed in uv units (svgf_reproject.frag:84-85): w/h times
         # smaller, so tap 0 dominates
         frac_x = (uv_x % (1.0 / w))
-        frac_y = (uv_y % (1.0 / h))
+        frac_y = (uv_y % (1.0 / gh))
     else:
         frac_x = fx - x0
         frac_y = fy - y0
     x0i = x0.astype(jnp.int32)
     y0i = y0.astype(jnp.int32)
 
-    taps = fetch_quad(qatlas, y0i, x0i)  # one gather: 4 bilinear taps
+    taps, held = fetch(y0i, x0i)  # one gather: 4 bilinear taps
     offsets = [(0, 0), (1, 0), (0, 1), (1, 1)]
     weights = [
         (1 - frac_x) * (1 - frac_y), frac_x * (1 - frac_y),
@@ -126,8 +116,8 @@ def reproject(color: Array, emission: Array, albedo: Array,
     acc_mom = jnp.zeros((h, w, 2), jnp.float32)
     any_valid = jnp.zeros((h, w), bool)
     for (dx, dy), wt, tap in zip(offsets, weights, taps):
-        v = _tap_valid(y0i + dy, x0i + dx, h, w, linear_z, fwidth_z,
-                       normal, fwidth_normal, tap, cfg)
+        v = held & _tap_valid(y0i + dy, x0i + dx, gh, w, linear_z, fwidth_z,
+                              normal, fwidth_normal, tap, cfg)
         any_valid = any_valid | v
         wv = jnp.where(v, wt, 0.0)
         sum_w = sum_w + wv
@@ -147,46 +137,10 @@ def reproject(color: Array, emission: Array, albedo: Array,
     n_valid = jnp.zeros((h, w), jnp.float32)
     r_illum = jnp.zeros((h, w, 4), jnp.float32)
     r_mom = jnp.zeros((h, w, 2), jnp.float32)
-    if cfg.fast_reproject:
-        # shift path: tap (y0+dy, x0+dx) at pixel p equals the base tap
-        # at pixel p+(dy,dx) wherever the motion field is locally smooth
-        # (y0(p+e) == y0(p)+e), so the 9 rescue taps become static shifts of
-        # the ONE quad gather already issued — saving 4 more full-frame
-        # gathers. Differs from the exact rescue only
-        # across motion discontinuities, where reprojection is about to be
-        # rejected anyway.
-        from tpuray.denoise.common import shift2d
-        base = taps[0]
-        in_b0 = ((x0i >= 0) & (x0i < w) & (y0i >= 0) & (y0i < h)) \
-            .astype(jnp.float32)
-        for dy in (-1, 0, 1):
-            for dx in (-1, 0, 1):
-                tap_s = {k: shift2d(val, dy, dx) for k, val in base.items()}
-                in_b = shift2d(in_b0, dy, dx) > 0.5
-                depth_ok = (jnp.abs(tap_s["linear_z"] - linear_z)
-                            / (fwidth_z + 1e-2)) <= cfg.reproj_depth_threshold
-                ndist = jnp.linalg.norm(normal - tap_s["normal"], axis=-1)
-                normal_ok = (ndist / (fwidth_normal + 1e-2)) \
-                    <= cfg.reproj_normal_threshold
-                vf = (in_b & depth_ok & normal_ok).astype(jnp.float32)
-                n_valid = n_valid + vf
-                illum_var = jnp.concatenate(
-                    [tap_s["illum"], tap_s["variance"][..., None]], -1)
-                r_illum = r_illum + vf[..., None] * illum_var
-                r_mom = r_mom + vf[..., None] * tap_s["moments"]
-        rescue_ok = (~bilinear_ok) & (n_valid > 0)
-        safe_n = jnp.maximum(n_valid, 1.0)
-        prev_i = jnp.where(rescue_ok[..., None],
-                           r_illum / safe_n[..., None], prev_i)
-        prev_mo = jnp.where(rescue_ok[..., None],
-                            r_mom / safe_n[..., None], prev_mo)
-        return _finish(color, illum, prev_i, prev_mo, bilinear_ok, rescue_ok,
-                       taps, fx, fy, x0i, y0i, sky, prev_moments,
-                       prev_history_len, linear_z, cfg, h, w)
     for base_dy, base_dx in ((-1, -1), (-1, 1), (1, -1), (1, 1)):
-        yb = jnp.clip(y0i + base_dy, 0, h - 2)
+        yb = jnp.clip(y0i + base_dy, 0, gh - 2)
         xb = jnp.clip(x0i + base_dx, 0, w - 2)
-        quad = fetch_quad(qatlas, yb, xb)
+        quad, held = fetch(yb, xb)
         for (qdx, qdy), tap in zip(((0, 0), (1, 0), (0, 1), (1, 1)), quad):
             ty = yb + qdy
             tx = xb + qdx
@@ -200,8 +154,9 @@ def reproject(color: Array, emission: Array, albedo: Array,
                 # block for interior pixels: only the first quad owns taps
                 # with ty<=y0 and tx<=x0
                 in_window = in_window & ~((ty <= y0i) & (tx <= x0i))
-            v = in_window & _tap_valid(ty, tx, h, w, linear_z, fwidth_z,
-                                       normal, fwidth_normal, tap, cfg)
+            v = in_window & held & _tap_valid(
+                ty, tx, gh, w, linear_z, fwidth_z, normal, fwidth_normal,
+                tap, cfg)
             vf = v.astype(jnp.float32)
             n_valid = n_valid + vf
             illum_var = jnp.concatenate([tap["illum"], tap["variance"][..., None]], -1)
@@ -214,7 +169,7 @@ def reproject(color: Array, emission: Array, albedo: Array,
 
     return _finish(color, illum, prev_i, prev_mo, bilinear_ok, rescue_ok,
                    taps, fx, fy, x0i, y0i, sky, prev_moments,
-                   prev_history_len, linear_z, cfg, h, w)
+                   prev_history_len, linear_z, cfg, gh, w)
 
 
 def _finish(color, illum, prev_i, prev_mo, bilinear_ok, rescue_ok, taps,
@@ -258,112 +213,6 @@ def _finish(color, illum, prev_i, prev_mo, bilinear_ok, rescue_ok, taps,
 
     return ReprojectOutput(illum=out_illum, variance=variance,
                            moments=moments, history_len=hist)
-
-
-def _reproject_tiled(color, emission, albedo, motion, normal, linear_z,
-                     fwidth_normal, fwidth_z, prev_illum, prev_variance,
-                     prev_normal, prev_linear_z, prev_moments,
-                     prev_history_len, cfg,
-                     row_window: tuple | None = None) -> ReprojectOutput:
-    """Moving-camera reprojection through the tile-windowed fetch
-    (denoise/tile_gather.py) instead of per-pixel gathers.
-
-    Semantics vs the exact path: bilinear taps are identical wherever the
-    integer motion varies by <= span inside a tile (everywhere, for camera
-    motion); 3x3 rescue taps are additionally invalidated across >= 1px/px
-    motion-field discontinuities, where reprojection is about to fail its
-    depth/normal tests anyway. Supports row shards (row_window).
-    """
-    from tpuray.denoise.history_atlas import split
-    from tpuray.denoise.tile_gather import tiled_taps
-
-    h, w = color.shape[:2]
-    row0, gh = row_window if row_window is not None else (0, h)
-    yy, xx = jnp.meshgrid(jnp.arange(h) + row0, jnp.arange(w), indexing="ij")
-    sky = linear_z == 1.0
-
-    atlas = jnp.concatenate([
-        prev_illum, prev_variance[..., None], prev_normal,
-        prev_linear_z[..., None], prev_moments, prev_history_len[..., None],
-    ], axis=-1)
-
-    illum = (color - emission) / jnp.maximum(albedo, 1e-3)
-    illum = jnp.where(jnp.isnan(illum), 0.0, illum)
-
-    uv_x = (xx.astype(jnp.float32) + 0.5) / w - motion[..., 0]
-    uv_y = (yy.astype(jnp.float32) + 0.5) / gh - motion[..., 1]
-    fx = uv_x * w - 0.5
-    fy = uv_y * gh - 0.5
-    x0 = jnp.floor(fx)
-    y0 = jnp.floor(fy)
-    if cfg.reference_quirks:
-        frac_x = (uv_x % (1.0 / w))
-        frac_y = (uv_y % (1.0 / gh))
-    else:
-        frac_x = fx - x0
-        frac_y = fy - y0
-    x0i = x0.astype(jnp.int32)  # global pixel coords
-    y0i = y0.astype(jnp.int32)
-
-    # all 9 ring offsets; the bilinear quad subset gets exact taps.
-    # the atlas is the local (halo-extended) shard -> local tap coords
-    offs = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
-    raw, resolved = tiled_taps(atlas, y0i - row0, x0i, offs)
-    taps_by_off = {e: split(raw[e]) for e in offs}
-
-    # bilinear accumulation (offset naming here is (dx, dy), matching the
-    # exact path's zip order and weights)
-    weights = {
-        (0, 0): (1 - frac_x) * (1 - frac_y), (1, 0): frac_x * (1 - frac_y),
-        (0, 1): (1 - frac_x) * frac_y, (1, 1): frac_x * frac_y,
-    }
-    sum_w = jnp.zeros((h, w), jnp.float32)
-    acc_illum = jnp.zeros((h, w, 4), jnp.float32)
-    acc_mom = jnp.zeros((h, w, 2), jnp.float32)
-    any_valid = jnp.zeros((h, w), bool)
-    bilinear_taps = []
-    for (dx, dy), wt in weights.items():
-        tap = taps_by_off[(dy, dx)]
-        bilinear_taps.append(tap)
-        v = (resolved[(dy, dx)]
-             & _tap_valid(y0i + dy, x0i + dx, gh, w, linear_z, fwidth_z,
-                          normal, fwidth_normal, tap, cfg))
-        any_valid = any_valid | v
-        wv = jnp.where(v, wt, 0.0)
-        sum_w = sum_w + wv
-        illum_var = jnp.concatenate([tap["illum"], tap["variance"][..., None]], -1)
-        acc_illum = acc_illum + wv[..., None] * illum_var
-        acc_mom = acc_mom + wv[..., None] * tap["moments"]
-
-    bilinear_ok = any_valid & (sum_w >= 0.01)
-    safe_w = jnp.maximum(sum_w, 1e-6)
-    prev_i = jnp.where(bilinear_ok[..., None], acc_illum / safe_w[..., None], 0.0)
-    prev_mo = jnp.where(bilinear_ok[..., None], acc_mom / safe_w[..., None], 0.0)
-
-    # 3x3 rescue
-    n_valid = jnp.zeros((h, w), jnp.float32)
-    r_illum = jnp.zeros((h, w, 4), jnp.float32)
-    r_mom = jnp.zeros((h, w, 2), jnp.float32)
-    for dy in (-1, 0, 1):
-        for dx in (-1, 0, 1):
-            tap = taps_by_off[(dy, dx)]
-            v = (resolved[(dy, dx)]
-                 & _tap_valid(y0i + dy, x0i + dx, gh, w, linear_z, fwidth_z,
-                              normal, fwidth_normal, tap, cfg))
-            vf = v.astype(jnp.float32)
-            n_valid = n_valid + vf
-            illum_var = jnp.concatenate(
-                [tap["illum"], tap["variance"][..., None]], -1)
-            r_illum = r_illum + vf[..., None] * illum_var
-            r_mom = r_mom + vf[..., None] * tap["moments"]
-    rescue_ok = (~bilinear_ok) & (n_valid > 0)
-    safe_n = jnp.maximum(n_valid, 1.0)
-    prev_i = jnp.where(rescue_ok[..., None], r_illum / safe_n[..., None], prev_i)
-    prev_mo = jnp.where(rescue_ok[..., None], r_mom / safe_n[..., None], prev_mo)
-
-    return _finish(color, illum, prev_i, prev_mo, bilinear_ok, rescue_ok,
-                   bilinear_taps, fx, fy, x0i, y0i, sky, prev_moments,
-                   prev_history_len, linear_z, cfg, gh, w)
 
 
 def _reproject_static(color, emission, albedo, normal, linear_z,

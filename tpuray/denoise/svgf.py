@@ -14,7 +14,7 @@ import jax.numpy as jnp
 
 from tpuray.denoise.atrous import atrous_iteration
 from tpuray.denoise.modulate import modulate
-from tpuray.denoise.reproject import _gather_mode, reproject
+from tpuray.denoise.reproject import reproject
 from tpuray.denoise.taa import taa
 from tpuray.denoise.variance import estimate_variance
 from tpuray.integrator.gbuffer import GBuffer
@@ -67,8 +67,7 @@ def svgf_pipeline(color: Array, emission: Array, albedo: Array,
 
     mod = modulate(illum, albedo, emission, gbuf.linear_z)
     taa_out = taa(mod, state.taa_color, gbuf.velocity, gbuf.linear_z,
-                  state.frame_idx, static_camera=static_camera,
-                  tiled_fetch=_gather_mode(cfg) == "tiled")
+                  state.frame_idx, static_camera=static_camera)
 
     return SVGFOutput(
         reprojected=rep.illum, reprojected_var=rep.variance,

@@ -9,7 +9,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from tpuray.denoise.common import gather2d, shift2d
+from tpuray.denoise.common import shift2d
 
 Array = jax.Array
 
@@ -73,43 +73,42 @@ def clip_aabb(cur_ycc_3x3_mu, cur_ycc_3x3_sigma, prev_ycc, gamma=1.0):
     return jnp.where(ma > 1.0, clipped, prev_ycc)
 
 
-def _history_fetch_tiled(prev_color: Array, vel: Array,
-                         row_window: tuple | None = None) -> Array:
-    """Bilinear history fetch via the tile-windowed path
-    (denoise/tile_gather.py) instead of a full-frame gather, as row shards
-    need (dist/frame.py). Unresolved taps (motion discontinuities, image edges) drop out of
-    the bilinear sum with weight renormalization; if all four fail the
-    history is rejected (zero weight -> falls back to the current color via
-    the caller's variance clip + blend)."""
-    from tpuray.denoise.tile_gather import QUAD, tiled_taps
+def _history_fetch(prev_color: Array, vel: Array,
+                   row_window: tuple | None = None):
+    """Bilinear clamp-to-edge history fetch at uv - velocity
+    (taa.frag:137-139); the 2x2 neighbourhood is quad-packed, so the fetch
+    is one gather. -> (history, held): on a row_window shard (see
+    tpuray.dist.frame) `held` is False where the quad lies beyond the
+    shard's rows, and the caller drops the history there; None otherwise."""
+    from tpuray.denoise.common import quad_in_rows
+    from tpuray.integrator.gather_tables import quad_pack_image
 
     h, w = prev_color.shape[:2]
     row0, gh = row_window if row_window is not None else (0, h)
     yy, xx = jnp.meshgrid(jnp.arange(h) + row0, jnp.arange(w), indexing="ij")
-    x = xx.astype(jnp.float32) + 0.5 - vel[..., 0] * w - 0.5
-    y = yy.astype(jnp.float32) + 0.5 - vel[..., 1] * gh - 0.5
+    u = jnp.clip((xx + 0.5) / w - vel[..., 0], 0.0, 1.0)
+    v = jnp.clip((yy + 0.5) / gh - vel[..., 1], 0.0, 1.0)
+    x = u * w - 0.5
+    y = v * gh - 0.5
     x0 = jnp.floor(x)
     y0 = jnp.floor(y)
     fx = (x - x0)[..., None]
     fy = (y - y0)[..., None]
-    taps, res = tiled_taps(prev_color, y0.astype(jnp.int32) - row0,
-                           x0.astype(jnp.int32), QUAD)
-    weights = {
-        (0, 0): (1 - fx) * (1 - fy), (0, 1): fx * (1 - fy),
-        (1, 0): (1 - fx) * fy, (1, 1): fx * fy,
-    }
-    acc = jnp.zeros_like(prev_color)
-    wsum = jnp.zeros((h, w, 1), jnp.float32)
-    for e, wt in weights.items():
-        wv = jnp.where(res[e][..., None], wt, 0.0)
-        acc = acc + wv * taps[e]
-        wsum = wsum + wv
-    return acc / jnp.maximum(wsum, 1e-6), wsum[..., 0] > 1e-6
+    x0i = jnp.clip(x0.astype(jnp.int32), 0, w - 1)
+    y0i = jnp.clip(y0.astype(jnp.int32), 0, gh - 1)
+    # at the clamped edge the packed neighbours equal the base texel
+    row = quad_pack_image(prev_color)[jnp.clip(y0i - row0, 0, h - 1), x0i]
+    c00, c10, c01, c11 = (row[..., i * 3:(i + 1) * 3] for i in range(4))
+    prev = ((c00 * (1 - fx) + c10 * fx) * (1 - fy)
+            + (c01 * (1 - fx) + c11 * fx) * fy)
+    if row_window is None:
+        return prev, None
+    return prev, quad_in_rows(y0i, row_window, h)
 
 
 def taa(cur_color: Array, prev_color: Array, velocity: Array,
         linear_z: Array, frame: Array | int,
-        static_camera: bool = False, tiled_fetch: bool = False,
+        static_camera: bool = False,
         row_window: tuple | None = None) -> Array:
     # row_window: halo-extended row shard; see tpuray.dist.frame
     h, w = linear_z.shape
@@ -120,18 +119,9 @@ def taa(cur_color: Array, prev_color: Array, velocity: Array,
         # motion == 0: history fetch is the same pixel, no gather
         vel = jnp.zeros((h, w, 2), jnp.float32)
         prev = prev_color
-    elif tiled_fetch:
-        vel = closest_velocity(velocity, linear_z)
-        prev, hist_ok = _history_fetch_tiled(prev_color, vel, row_window)
     else:
         vel = closest_velocity(velocity, linear_z)
-        # history fetch at uv - velocity (bilinear, taa.frag:137-139); the
-        # 2x2 neighborhood is quad-packed so the fetch is one gather
-        from tpuray.integrator.gather_tables import bilinear_fetch_packed, quad_pack_image
-        yy, xx = jnp.meshgrid(jnp.arange(h), jnp.arange(w), indexing="ij")
-        u = jnp.clip((xx + 0.5) / w - vel[..., 0], 0.0, 1.0)
-        v = jnp.clip((yy + 0.5) / h - vel[..., 1], 0.0, 1.0)
-        prev = bilinear_fetch_packed(quad_pack_image(prev_color), u, v, c=3)
+        prev, hist_ok = _history_fetch(prev_color, vel, row_window)
 
     now_ycc = rgb_to_ycocgr(taa_tonemap(cur_color))
     prev_ycc = rgb_to_ycocgr(taa_tonemap(prev))

@@ -7,15 +7,20 @@ with image rows sharded across the mesh and the scene replicated. The
 denoise stages are stencils, so each stage exchanges exactly the halo rows
 it needs with its mesh neighbors via `lax.ppermute` (NCCL over NVLink: a
 few hundred KB per frame), then computes on the halo-extended shard with
-global-coordinate boundary masks (`row_window` support in denoise/*) so the
-result is exactly the single-device frame.
+global-coordinate boundary masks (`row_window` support in denoise/*), so the
+denoiser computes what the single-device frame does.
 
-Temporal reprojection can read arbitrarily far rows under fast motion; the
-halo bounds it: history taps farther than `halo` rows from the shard are
-conservatively treated as reprojection failures (the same response the
-algorithm has to disocclusion). `halo` also caps the per-iteration a-trous
+Temporal reprojection and TAA can read arbitrarily far rows under fast
+motion; the halo bounds them: history reads farther than `halo` rows from
+the shard are treated as reprojection failures (the same response the
+algorithm has to disocclusion). Only there does the sharded frame differ
+from the single-device one. `halo` also caps the per-iteration a-trous
 exchange, so it must be >= 2 * the largest dilation step
 (2 * 2^(num_atrous_iterations-1)).
+
+The path tracer runs per shard on its own rays (bounce compaction per
+shard), so float reassociation may differ from the single-device program
+at isolated grazing hit or shadow tests.
 
 RNG keys off global pixel coordinates, so any mesh size renders the same
 image.
@@ -200,8 +205,7 @@ def render_frame_sharded(scene: Scene, camera: Camera, state: FrameState,
         taa_e = taa(_halo_rows(mod, kt), _halo_rows(taa_color, kt),
                     _halo_rows(gbuf.velocity, kt),
                     _halo_rows(gbuf.linear_z, kt), frame,
-                    static_camera=static_camera, tiled_fetch=not static_camera,
-                    row_window=win_t)
+                    static_camera=static_camera, row_window=win_t)
         taa_out = _crop(taa_e, kt)
 
         final = taa_out if cfg.enable_taa else mod

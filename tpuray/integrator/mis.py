@@ -39,22 +39,7 @@ def trace_paths_mis(scene: Scene, orig: Array, d: Array, px: Array, py: Array,
     _, seed = rng.rand(seed)
     _, seed = rng.rand(seed)
 
-    _BLOCK = 1024  # rays of one 32x32 screen tile (render/tiling.py)
-    coherent = cfg.tile_coherent_sampling and n % _BLOCK == 0
-    if coherent:
-        n_tiles = n // _BLOCK
-        tid = jnp.arange(n_tiles, dtype=jnp.uint32)
-        tseed = rng.pixel_seed(tid, tid * jnp.uint32(7919), frame)
-
-        def tile_rand(ts):
-            u, ts = rng.rand(ts)
-            return jnp.repeat(u, _BLOCK), ts
-
-        cpr_u, cpr_v = rng.cranley_patterson_offsets(tid, tid * jnp.uint32(31))
-        cpr_u = jnp.repeat(cpr_u, _BLOCK)
-        cpr_v = jnp.repeat(cpr_v, _BLOCK)
-    else:
-        cpr_u, cpr_v = rng.cranley_patterson_offsets(px, py)
+    cpr_u, cpr_v = rng.cranley_patterson_offsets(px, py)
 
     light = jnp.zeros((n, 3), jnp.float32)
     history = jnp.ones((n, 3), jnp.float32)
@@ -92,12 +77,8 @@ def trace_paths_mis(scene: Scene, orig: Array, d: Array, px: Array, py: Array,
         tb = disney.build_onb(hit.normal) if aniso else None
 
         # --- light sampling arm (frag:981-1004) ---
-        if coherent:
-            r1, tseed = tile_rand(tseed)
-            r2, tseed = tile_rand(tseed)
-        else:
-            r1, seed = rng.rand(seed)
-            r2, seed = rng.rand(seed)
+        r1, seed = rng.rand(seed)
+        r2, seed = rng.rand(seed)
         l_light = env.sample_env_packed(pk.env_cache_q, r1, r2)
         front = jnp.sum(hit.normal * l_light, axis=-1) > 0.0
         s_tmax = jnp.where(alive & front, pt.INF, 0.0)
@@ -119,10 +100,7 @@ def trace_paths_mis(scene: Scene, orig: Array, d: Array, px: Array, py: Array,
         # --- BSDF sampling arm (frag:1006-1048) ---
         sob = rng.sobol_vec2(jnp.asarray(frame, jnp.uint32) + jnp.uint32(1), bounce)
         xi1, xi2 = rng.cranley_patterson_rotate(sob, cpr_u, cpr_v)
-        if coherent:
-            xi3, tseed = tile_rand(tseed)
-        else:
-            xi3, seed = rng.rand(seed)
+        xi3, seed = rng.rand(seed)
         l_new = disney.sample(xi1, xi2, xi3, v, hit.normal, hit.mat,
                               frame=tb)
         ndotl = jnp.sum(hit.normal * l_new, axis=-1)

@@ -261,16 +261,15 @@ class _ShadeOut(NamedTuple):
 def _shade_loop(scene: Scene, pk: PackedScene, cfg: RenderConfig,
                 orig: Array, d: Array, px: Array, py: Array,
                 frame: Array | int, first_t: Array, first_idx: Array,
-                coherent: bool = False, aniso: bool = False) -> _ShadeOut:
+                aniso: bool = False) -> _ShadeOut:
     """The per-bounce NEE + BSDF loop, with the bounce-0 traversal given.
 
     Every sample stream is keyed on (px, py, frame) — lane POSITION never
-    enters the math (even in `coherent` tile mode, whose streams are keyed
-    on px//32) — so running this loop on a compacted subset of lanes
+    enters the math — so running this loop on a compacted subset of lanes
     yields the same per-pixel math (identical up to XLA fusion
     reassociation — the compaction property trace_paths relies on). Lanes
-    whose first_idx
-    is < 0 are miss lanes: they report the environment escape at bounce 0.
+    whose first_idx is < 0 are miss lanes: they report the environment
+    escape at bounce 0.
     """
     n = orig.shape[0]
     seed = rng.pixel_seed(px, py, frame)
@@ -279,25 +278,7 @@ def _shade_loop(scene: Scene, pk: PackedScene, cfg: RenderConfig,
     _, seed = rng.rand(seed)
     _, seed = rng.rand(seed)
 
-    if coherent:
-        # per-PIXEL-TILE secondary-ray randoms (see RenderConfig): one
-        # stream per 32x32 SCREEN tile, keyed on (tile_x, tile_y, frame) —
-        # free of lane position, so it composes with bounce-boundary
-        # compaction and image sharding. All rays of a screen tile draw
-        # identical secondary randoms, which keeps a traversal block's
-        # shadow/bounce rays direction-coherent.
-        # The +0x8000 salt keeps tile streams disjoint from the per-pixel
-        # streams of the pixels at the tile coordinates.
-        tpx = px // jnp.uint32(32) + jnp.uint32(0x8000)
-        tpy = py // jnp.uint32(32) + jnp.uint32(0x8000)
-        tseed = rng.pixel_seed(tpx, tpy, frame)
-
-        def tile_rand(ts):
-            return rng.rand(ts)
-
-        cpr_u, cpr_v = rng.cranley_patterson_offsets(tpx, tpy)
-    else:
-        cpr_u, cpr_v = rng.cranley_patterson_offsets(px, py)
+    cpr_u, cpr_v = rng.cranley_patterson_offsets(px, py)
 
     light = jnp.zeros((n, 3), jnp.float32)
     reduction = jnp.ones((n, 3), jnp.float32)
@@ -339,10 +320,7 @@ def _shade_loop(scene: Scene, pk: PackedScene, cfg: RenderConfig,
         # sample the BSDF (Sobol + CPR + stream xi3, frag:1089-1096)
         sob = rng.sobol_vec2(jnp.asarray(frame, jnp.uint32) + jnp.uint32(1), bounce)
         xi1, xi2 = rng.cranley_patterson_rotate(sob, cpr_u, cpr_v)
-        if coherent:
-            xi3, tseed = tile_rand(tseed)
-        else:
-            xi3, seed = rng.rand(seed)
+        xi3, seed = rng.rand(seed)
 
         v = -d
         # anisotropic path (static gate, see resolve_aniso): tangent frame
@@ -359,14 +337,9 @@ def _shade_loop(scene: Scene, pk: PackedScene, cfg: RenderConfig,
         pre = disney.precompute_view(v, hit.normal, hit.mat, frame=tb)
         f_r, brdf_pdf = disney.evaluate_pdf_pre(pre, v, hit.normal, l_new,
                                                 hit.mat)
-        if coherent:
-            er1, tseed = rng.rand(tseed)
-            er2, tseed = rng.rand(tseed)
-            lu, tseed = tile_rand(tseed)
-        else:
-            er1, seed = rng.rand(seed)
-            er2, seed = rng.rand(seed)
-            lu, seed = rng.rand(seed)
+        er1, seed = rng.rand(seed)
+        er2, seed = rng.rand(seed)
+        lu, seed = rng.rand(seed)
         env_c, env_pdf_v = _env_nee(scene, pk, hit, v, er1, er2,
                                     active=alive, pre=pre)
         pt_c, pt_pdf_v = _point_nee(scene, pk, hit, v, lu, active=alive,
@@ -434,7 +407,6 @@ def trace_paths(scene: Scene, orig: Array, d: Array, px: Array, py: Array,
         return trace_paths_mis(scene, orig, d, px, py, frame, cfg)
     n = orig.shape[0]
     pk = pack_scene_tables(scene)  # wide-gather tables (cheap reshuffles)
-    coherent = cfg.tile_coherent_sampling
     aniso = resolve_aniso(scene, cfg)
 
     t0_full, idx0_full = trace(scene.bvh, scene.triangles, orig, d,
@@ -444,7 +416,7 @@ def trace_paths(scene: Scene, orig: Array, d: Array, px: Array, py: Array,
     budget = _compact_budget(n, cfg)
     if budget == 0:
         out = _shade_loop(scene, pk, cfg, orig, d, px, py, frame,
-                          t0_full, idx0_full, coherent=coherent, aniso=aniso)
+                          t0_full, idx0_full, aniso=aniso)
     else:
         # stable compaction: sel = the first `budget` surviving lane ids in
         # tile order (preserves spatial coherence inside blocks); padding
@@ -465,11 +437,7 @@ def trace_paths(scene: Scene, orig: Array, d: Array, px: Array, py: Array,
             scene, pk, cfg, gf[:, 0:3], c_d,
             gi[:, 0].astype(jnp.uint32), gi[:, 1].astype(jnp.uint32), frame,
             jnp.where(lane_ok, gf[:, 6], INF),
-            jnp.where(lane_ok, gi[:, 2], -1),
-            # tile keying is pixel-derived (px//32), never lane-position —
-            # safe under compaction (ADVICE r4: dropping it here silently
-            # disabled tile_coherent_sampling whenever compact_frac > 0)
-            coherent=coherent, aniso=aniso)
+            jnp.where(lane_ok, gi[:, 2], -1), aniso=aniso)
 
         # ONE fused scatter of every per-lane output (7x3 f32 + 2 flags).
         # miss_dir is scattered as a delta on top of d so lanes that never
@@ -505,7 +473,7 @@ def trace_paths(scene: Scene, orig: Array, d: Array, px: Array, py: Array,
             r = _shade_loop(scene, pk, cfg, orig, d, px, py, frame,
                             jnp.where(r_alive, t0_full, INF),
                             jnp.where(r_alive, idx0_full, -1),
-                            coherent=coherent, aniso=aniso)
+                            aniso=aniso)
             # lanes masked OFF this pass (first_idx forced to -1) report a
             # bounce-0 "miss" — scrub it, or the merge below would hand
             # every such lane a full-strength env contribution on top of

@@ -32,6 +32,7 @@ import numpy as np
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import triton as plgpu
 
+from tpuray.accel.bvh import MAX_LEAF_SIZE
 from tpuray.integrator.intersect import (
     INF, PARALLEL_EPS, T_MIN, triangle_constants)
 from tpuray.scene.types import BVHSoA, TriangleSoA
@@ -43,8 +44,8 @@ Array = jax.Array
 # primary and incoherent rays, PERF.md)
 BLOCK = 32
 TRI_W = 16        # f32 words per triangle record (12 used)
-COUNT_BITS = 5    # leaf triangle count packed below first_tri
-MAX_LEAF = (1 << COUNT_BITS) - 1
+MAX_LEAF = MAX_LEAF_SIZE                 # enforced by accel.bvh.build_bvh
+COUNT_BITS = MAX_LEAF.bit_length()       # leaf count packed below first_tri
 KERNEL_NAME = "bvh_trace"
 
 
@@ -54,6 +55,8 @@ def pack_scene(bvh: BVHSoA, tri: TriangleSoA) -> tuple[Array, Array]:
     Node record: bitcast(amin xyz), bitcast(amax xyz),
     first_tri << 5 | tri_count, skip. Triangle record: n xyz, n.p0,
     T1 xyz, t1w, T2 xyz, t2w, four zero words of padding."""
+    # a check for trees built outside accel.bvh; under jit the counts are
+    # tracers and only the build-time check applies
     if not isinstance(bvh.tri_count, jax.core.Tracer):
         assert int(np.max(np.asarray(bvh.tri_count))) <= MAX_LEAF, (
             f"leaf holds more than {MAX_LEAF} triangles")

@@ -69,28 +69,6 @@ class RenderConfig:
     enable_svgf: bool = True
     enable_taa: bool = True
 
-    # moving-camera history-read strategy (denoise/reproject.py):
-    #  "auto"  -> "exact" (denoise/reproject._gather_mode)
-    #  "tiled" -> tile-windowed fetch (denoise/tile_gather.py): bilinear taps
-    #             exact wherever the integer motion varies <= span per tile
-    #             (always, for camera motion), rescue taps conservatively
-    #             invalidated across motion discontinuities
-    #  "exact" -> per-pixel gathers, reference tap-exact semantics (oracle)
-    reproject_gather: str = "auto"
-
-    # shift-approximated rescue taps: derive the 3x3 rescue taps from static
-    # shifts of the one bilinear quad gather; forces mode "fast".
-    fast_reproject: bool = False
-
-    # draw the secondary-ray randoms (envmap sample, light pick,
-    # BSDF-lobe/CPR rotation) once per 32x32 SCREEN tile instead of per
-    # pixel, keyed on (tile_x, tile_y, frame) so it composes with
-    # bounce-boundary compaction and image sharding. Keeps neighbouring
-    # shadow/bounce rays direction-coherent; per-pixel noise becomes
-    # per-tile noise (still unbiased per pixel, refreshed per frame by the
-    # Sobol sequence). Off = reference per-pixel semantics.
-    tile_coherent_sampling: bool = False
-
     # Bounce-boundary ray compaction (integrator/path_tracer.py): after the
     # primary trace, pack the surviving (hit) lanes densely into a buffer of
     # compact_frac * n rays and run the whole NEE + bounce loop at that
